@@ -7,27 +7,46 @@
 Phases (each prints its result and wall time on its own line):
   0. environment: card name and power limit, torch and CUDA versions;
      TF32 off for matmuls and cuDNN.
-  1. build the zebra kernel (csrc/zebra.cu) with nvcc.
-  2. kernel vs plain PyTorch version on the card, both line axes: at the
-     unit-test shape on unit-normal planes (rtol = atol = 1e-5), and on the
-     real level-0 planes of the T106 and scale-4 meshes as the device
-     solver builds them (max |err| <= 1e-5 max |plain|, plain version in
+  1. build the three kernels (csrc/probe.cu, zebra.cu, sor.cu) with nvcc,
+     all at once, then launch the probe first: its output must be exactly
+     i + 1.
+  2. zebra kernel vs plain PyTorch version on the card, both line axes: at
+     the unit-test shape on unit-normal planes (rtol = atol = 1e-5), and on
+     the real level-0 planes of the T106, LS89 and scale-4 meshes as the
+     device solver builds them (max |err| <= 1e-5 max |plain|, plain version in
      f64 on the same operands); median of 20 CUDA-event timings on the
      scale-4 planes.
-  3. main path: ``cli.main`` on examples/T106/T106.json with the device
-     solver (10 White Picard iterations, 25,118 points); the kernel must
-     have launched, coordinates be finite, the last linear solve have
-     converged, and the written mesh read back bit-identical.
-  4. oracle: one Laplace linearized solve of the T106 mesh on the card
+  3. SOR kernel vs plain version, 50 sweeps, f32 and f64, on (a) 256 x 256
+     with a perturbed x0 and cf != 0, (b) the largest block of the scale-4
+     mesh frozen at its coordinates (centred on the origin) with seeded cf
+     and a perturbed interior, (c) a small mask that touches the edges
+     (wrap-around).
+     Bars: max |err| <= 1e-12 max |plain| in f64; in f32 <= 1e-5 max
+     |plain| against the plain version in f64. Median of 20 CUDA-event
+     timings at (a) and (b).
+  4. main path of the CLI: ``cli.main`` on examples/T106/T106.json with
+     the device solver (10 White Picard iterations, 25,118 points); the
+     zebra kernel must have launched, coordinates be finite, the last
+     linear solve have converged, and the written mesh read back
+     bit-identical.
+  5. oracle: one Laplace linearized solve of the T106 mesh on the card
      (rtol 1e-15, atol 1e-18) vs the host sparse direct solve,
      max |delta| < 1e-10.
-  5. real size: the scaled T106 cascade at scale 4 (388,448 points),
+  6. real size: the scaled T106 cascade at scale 4 (388,448 points),
      Laplace, run to the displacement residual 1e-10 within 30 Picard
      iterations.
+  7. main path of the bench: ``bench.main`` at scale 1, then LS89, T106
+     and the SOR entry. Every entry must finish, LS89 and T106 reach 1e-10
+     (through the frozen continuation), every linear solve converge, all
+     three kernels launch, and the last line parse and fit in 1024 bytes.
+     The kernel counts are set to 0 just before and read just after.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
 checkout of the repository, and when any phase fails. On success the last
-two lines are the kernels JSON object and
+two lines are the kernels JSON object (name, route, source, replaced TPU
+kernel, launches on the bench's main path, max |err|, kernel / plain /
+library ms, and the bound: the larger of the bytes each call must move
+at 3.35 TB/s and its flops at the card's peak for their type) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}},
 preceded by the nvidia-smi name and power limit of the card.
 """
@@ -49,6 +68,7 @@ import traceback
 ROOT = pathlib.Path(__file__).resolve().parent
 PKG = ROOT / "turbomesh_tpu_torch"
 T106 = ROOT / "examples" / "T106" / "T106.json"
+LS89 = ROOT / "examples" / "LS89" / "LS89.json"
 KERNEL_RTOL = KERNEL_ATOL = 1e-5   # kernel vs plain (tests/test_zebra.py:103)
 # kernel vs plain on the main path's level-0 planes: max |err| <= PLANE_RTOL
 # * max |plain|, per output plane, with the plain version evaluated in f64
@@ -62,6 +82,26 @@ PLANE_RTOL = 1e-5
 ORACLE_TOL = 1e-10                 # device vs host direct solve
 TARGET = 1e-10                     # displacement residual, scale 4
 SCALE4_PICARD_CAP = 30
+SOR_SWEEPS = 50
+# SOR kernel vs plain: max |err| <= bar * max |plain|; f32 against the
+# plain version run in f64 on the same (f32) operands
+SOR_BAR = {"float64": 1e-12, "float32": 1e-5}
+SUMMARY_MAX_BYTES = 1024
+
+# Bounds: H100 SXM peaks from NVIDIA's data sheet (700 W): device memory
+# 3.35 TB/s; outside the tensor cores 67 TFLOP/s in f32, 34 in f64.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+# flops a point of one zebra half-sweep (csrc/zebra.cu): the residual
+# (metrics 8, g 9, diag 2, four coefficients 12, h 1, stencil 2 x 17,
+# masked r - Az 4 = 70) and Thomas for x and y with shared diagonals (18)
+ZEBRA_FLOPS_PER_POINT = 88
+# flops per masked point of an SOR call (csrc/sor.cu): the coefficients
+# come from the frozen base and cf, so the function needs them once a call
+# (metrics 8, g 9, diag 2, coefficients 12, h 1, scale 1 = 33); each sweep
+# then updates x and y (2 x (stencil 17 + update 2) = 38)
+SOR_FLOPS_SETUP = 33
+SOR_FLOPS_PER_SWEEP = 38
 
 
 def nvidia_smi() -> str:
@@ -71,32 +111,6 @@ def nvidia_smi() -> str:
     if res.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {res.stderr.strip()}")
     return res.stdout.strip().splitlines()[0]
-
-
-def scaled_t106_config(s: int) -> dict:
-    """The scaled T106 cascade of the JAX package's bench (bench.py
-    build_mesh): O4H cell counts multiplied by ``s``."""
-    return {
-        "template": {"O4H": {
-            "inlet_distance": 0.05, "outlet_distance": 0.02,
-            "wall_delta_s": min(0.01, 0.4 / (40 * s)),
-            "blade_clustering": {"roberts": {"alpha": 0.5, "beta": 1.03}},
-            "num_cells": {
-                "o_grid": 40 * s, "middle_i": 100 * s, "in_up_j": 30 * s,
-                "in_down_j": 10 * s, "in_i": 10 * s, "out_up_j": 40 * s,
-                "out_down_j": 10 * s, "out_i": 10 * s, "down_j": 40 * s,
-                "bulge": 40 * s, "upstream_i": 20 * s, "downstream_i": 10 * s,
-            },
-        }},
-        "smoothing": {},
-        "geometry": {
-            "pitch": 0.08836,
-            "profile": {"csv": {
-                "down_csv_path": "examples/T106/T106_ps.dat",
-                "up_csv_path": "examples/T106/T106_ss.dat",
-            }},
-        },
-    }
 
 
 def zebra_inputs(torch, shape, seed):
@@ -156,6 +170,74 @@ def level0_sweeps(mesh, device, seed):
             (1, head + [*zb["lj"], zb["msk"], zb["sel_i"][1], *r])]
 
 
+def bound_ms(nbytes, flops, dtype_name):
+    """(ms, "bytes" | "operations"): the least time of a call that reads
+    each input once, writes each output once and does ``flops`` flops."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sor_cases(np, scale4_mesh, seed):
+    """(name, base, cf, x0, mask) numpy inputs of the SOR check: (a) 256 x
+    256 unit square, (b) the largest block of the scale-4 mesh frozen at
+    its coordinates, centred, (c) a 24 x 20 random mask holding row 0 and
+    column 0 (their neighbours wrap around). Seeded cf with |P|, |Q| ~ 0.1
+    and a perturbed x0 inside the mask."""
+    rng = np.random.default_rng(seed)
+
+    def case(name, base, mask, amp):
+        x0 = base.copy()
+        x0[mask] += amp * rng.standard_normal(x0[mask].shape)
+        cf = 0.1 * rng.standard_normal(base.shape)
+        return name, base, cf, x0, mask
+
+    u = np.linspace(0.0, 1.0, 256)
+    square = np.stack(np.meshgrid(u, u, indexing="ij"), -1)
+    interior = np.zeros((256, 256), bool)
+    interior[1:-1, 1:-1] = True
+    # (b) is moved rigidly so that its centroid sits at the origin. The
+    # stencil's coefficients sum to 0, so a translation commutes with the
+    # sweeps; but at its own place (|x| up to 1.13, the block 0.09 across,
+    # wall cells far below f32's resolution there) f32 cannot resolve the
+    # metrics: the f32 plain version alone is 1.0e-5 off, and rounding only
+    # the stored iterate to f32 already costs 3.0e-6.
+    block = max(scale4_mesh.blocks, key=lambda b: b.size[0] * b.size[1])
+    bbase = np.ascontiguousarray(block.points, dtype=np.float64)
+    bbase = bbase - bbase.reshape(-1, 2).mean(axis=0)
+    bmask = np.zeros(bbase.shape[:2], bool)
+    bmask[1:-1, 1:-1] = True
+    spacing = np.abs(np.diff(bbase[:, :, 0], axis=1)).min()
+    u = np.linspace(0.0, 1.0, 24)
+    v = np.linspace(0.0, 1.0, 20)
+    small = np.stack(np.meshgrid(u, v, indexing="ij"), -1)
+    emask = rng.random((24, 20)) < 0.6
+    emask[0, :] = True
+    emask[:, 0] = True
+    return [case("a 256x256", square, interior, 0.3 / 256),
+            case(f"b scale-4 block {bbase.shape[0]}x{bbase.shape[1]}",
+                 bbase, bmask, 0.3 * spacing),
+            case("c 24x20 edge mask", small, emask, 0.3 / 24)]
+
+
+class Tee:
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out = out
+        self.parts = []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def lines(self):
+        return "".join(self.parts).splitlines()
+
+
 def max_rel_err(got, want) -> float:
     """max |got - want| over max |want|, the worse of the x and y planes."""
     return max(float((g - w).abs().max() / w.abs().max())
@@ -183,25 +265,40 @@ class Smoke:
         self.torch = torch
         self.failed = []
         self._meshes = {}
-        # one kernel for the four TPU decompositions of the half-sweep:
-        # the default split pair, the fused PCR and the Thomas variant
-        self.kernel = {"name": "zebra_half_sweep", "route": "cuda",
-                       "source": "turbomesh_tpu_torch/csrc/zebra.cu",
-                       "replaces": ", ".join(
-                           f"turbomesh_tpu/ops/zebra.py:{line}"
-                           for line in (232, 274, 127, 138))}
+        # zebra: one kernel for the four TPU decompositions of the
+        # half-sweep (the default split pair, the fused PCR and the Thomas
+        # variant)
+        self.kernels = {
+            "zebra_half_sweep": {
+                "name": "zebra_half_sweep", "route": "cuda",
+                "source": "turbomesh_tpu_torch/csrc/zebra.cu",
+                "replaces": ", ".join(f"turbomesh_tpu/ops/zebra.py:{line}"
+                                      for line in (232, 274, 127, 138)),
+                "library_ms": None},
+            "red_black_sor": {
+                "name": "red_black_sor", "route": "cuda",
+                "source": "turbomesh_tpu_torch/csrc/sor.cu",
+                "replaces": "turbomesh_tpu/ops/sor.py:74",
+                "library_ms": None},
+            "probe": {
+                "name": "probe", "route": "cuda",
+                "source": "turbomesh_tpu_torch/csrc/probe.cu",
+                "replaces": "turbomesh_tpu/ops/zebra.py:297"},
+        }
 
     def mesh(self, name):
-        """The T106 mesh ("t106") or the scale-4 cascade ("scale4"),
-        built once."""
+        """The T106 ("t106") or LS89 ("ls89") example mesh, or the scale-4
+        cascade ("scale4"), built once."""
         if name not in self._meshes:
+            from turbomesh_tpu_torch import bench
             from turbomesh_tpu_torch import input as input_mod
 
-            if name == "t106":
-                inp = input_mod.load(str(T106), base_dir=str(T106.parent))
+            if name in ("t106", "ls89"):
+                path = T106 if name == "t106" else LS89
+                inp = input_mod.load(str(path), base_dir=str(path.parent))
+                self._meshes[name] = inp.template.run(inp.geometry)
             else:
-                inp = input_mod.load(scaled_t106_config(4), base_dir=str(ROOT))
-            self._meshes[name] = inp.template.run(inp.geometry)
+                self._meshes[name] = bench.build_mesh(4)
         return self._meshes[name]
 
     def phase(self, name, fn):
@@ -229,12 +326,35 @@ class Smoke:
                 f"{torch.cuda.device_count()}")
 
     def p1_build(self):
-        from turbomesh_tpu_torch.ops import zebra
+        from concurrent.futures import ThreadPoolExecutor
 
+        torch = self.torch
+        from turbomesh_tpu_torch.ops import _build, probe, sor, zebra
+
+        # one nvcc per source, all started together
         t0 = time.perf_counter()
-        path = zebra.build_library()
-        zebra.load_library()
-        return f"built {path.name} in {time.perf_counter() - t0:.2f} s"
+        names = ("probe", "zebra", "sor")
+        with ThreadPoolExecutor(len(names)) as pool:
+            paths = list(pool.map(_build.build_library, names))
+        t_build = time.perf_counter() - t0
+        for mod in (probe, zebra, sor):
+            mod.load_library()
+
+        # the probe launches first: o = i + 1, exactly
+        probe.check_card("cuda")
+        x = torch.randn(probe.SHAPE, device="cuda")
+        err = float((probe.probe(x) - probe.probe_ref(x)).abs().max())
+        ms = cuda_median_ms(torch, lambda: probe.probe(x))
+        plain = cuda_median_ms(torch, lambda: probe.probe_ref(x))
+        lib = cuda_median_ms(torch, lambda: torch.add(x, 1.0))
+        b_ms, b_by = bound_ms(2 * x.numel() * 4, x.numel(), "float32")
+        self.kernels["probe"].update(max_abs_err=err, ms=ms, plain_ms=plain,
+                                     bound_ms=b_ms, bound_by=b_by,
+                                     library_ms=lib)
+        return (f"built {', '.join(p.name for p in paths)} in {t_build:.2f} s "
+                f"(parallel nvcc); probe (8, 128) exact (i + 1), median of "
+                f"20: kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.add "
+                f"{lib:.4f} ms, bound {b_ms:.2e} ms ({b_by})")
 
     def p2_kernel(self):
         torch = self.torch
@@ -264,7 +384,7 @@ class Smoke:
         # the main path's level-0 planes; the plain version also runs in
         # f64 on the same operands to show each f32 solver's own error
         bad = []
-        for name in ("t106", "scale4"):
+        for name in ("t106", "ls89", "scale4"):
             sweeps = level0_sweeps(self.mesh(name), "cuda", seed=1)
             for axis, ops in sweeps:
                 ker, ref32, err32 = compare(ops, axis)
@@ -296,15 +416,91 @@ class Smoke:
                 torch, lambda: zebra.zebra_half_sweep(*ops, axis=axis)))
             plain.append(cuda_median_ms(
                 torch, lambda: zebra.zebra_half_sweep_ref(*ops, axis=axis)))
-        self.kernel.update(max_abs_err=worst, ms=sum(ms) / 2,
-                           plain_ms=sum(plain) / 2)
+        # 13 input planes read once, 2 output planes written once
+        points = sweeps[0][1][0].numel()
+        b_ms, b_by = bound_ms(15 * 4 * points, ZEBRA_FLOPS_PER_POINT * points,
+                              "float32")
+        self.kernels["zebra_half_sweep"].update(
+            max_abs_err=worst, ms=sum(ms) / 2, plain_ms=sum(plain) / 2,
+            bound_ms=b_ms, bound_by=b_by)
         return ("kernel vs plain, both axes: " + "; ".join(lines)
                 + f" (bar max |err| <= {PLANE_RTOL} max |f64 plain|); scale-4 "
                 f"planes median of 20: kernel axis0 {ms[0]:.4f} ms, axis1 "
                 f"{ms[1]:.4f} ms; plain axis0 {plain[0]:.4f} ms, axis1 "
-                f"{plain[1]:.4f} ms")
+                f"{plain[1]:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
 
-    def p3_main_path(self):
+    def p3_sor(self):
+        import numpy as np
+
+        torch = self.torch
+        from turbomesh_tpu_torch.ops import sor
+
+        lines, bad, worst = [], [], 0.0
+        timed = {}
+        for name, *arrs in sor_cases(np, self.mesh("scale4"), seed=7):
+            for dt in (torch.float64, torch.float32):
+                dname = str(dt).split(".")[1]
+                base, cf, x0 = [torch.as_tensor(a, dtype=dt, device="cuda")
+                                for a in arrs[:3]]
+                mask = torch.as_tensor(arrs[3], device="cuda")
+                before = sor.SOR_LAUNCHES
+                ker = sor.red_black_sor(base, cf, x0, mask, 1.5, SOR_SWEEPS)
+                per_call = sor.SOR_LAUNCHES - before
+                ref = sor.red_black_sor_ref(base.double(), cf.double(),
+                                            x0.double(), mask, 1.5, SOR_SWEEPS)
+                torch.cuda.synchronize()
+                if not bool(torch.isfinite(ker).all()):
+                    raise AssertionError(f"non-finite SOR output, {name}")
+                if per_call != 2 * SOR_SWEEPS:
+                    raise AssertionError(f"{per_call} launches per call, "
+                                         f"expected {2 * SOR_SWEEPS}")
+                err = float((ker.double() - ref).abs().max())
+                rel = err / float(ref.abs().max())
+                worst = max(worst, err)
+                note = ""
+                if dt == torch.float32:
+                    own = sor.red_black_sor_ref(base, cf, x0, mask, 1.5,
+                                                SOR_SWEEPS)
+                    own_rel = float((own.double() - ref).abs().max()
+                                    / ref.abs().max())
+                    note = f" (f32 plain's own rel {own_rel:.3e})"
+                lines.append(f"{name} {dname}: max |err| {err:.3e}, rel "
+                             f"{rel:.3e}{note}")
+                print("  " + lines[-1], flush=True)
+                if not rel <= SOR_BAR[dname]:
+                    bad.append(f"{name} {dname}: rel {rel:.3e}")
+                if not name.startswith("c"):
+                    timed[(name[0], dname)] = (base, cf, x0, mask)
+        if bad:
+            raise AssertionError("SOR kernel vs f64 plain above the bar: "
+                                 + "; ".join(bad))
+
+        times = {}
+        for (case, dname), (base, cf, x0, mask) in timed.items():
+            times[(case, dname)] = (
+                cuda_median_ms(torch, lambda: sor.red_black_sor(
+                    base, cf, x0, mask, 1.5, SOR_SWEEPS)),
+                cuda_median_ms(torch, lambda: sor.red_black_sor_ref(
+                    base, cf, x0, mask, 1.5, SOR_SWEEPS)))
+            elem = 4 if dname == "float32" else 8
+            b_ms, b_by = bound_ms(
+                x0.numel() // 2 * (8 * elem + 1),
+                int(mask.sum())
+                * (SOR_FLOPS_SETUP + SOR_SWEEPS * SOR_FLOPS_PER_SWEEP), dname)
+            times[(case, dname)] += (b_ms, b_by)
+        ms, plain, b_ms, b_by = times[("a", "float32")]
+        self.kernels["red_black_sor"].update(
+            max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by)
+        timing = "; ".join(
+            f"({case}) {dname}: kernel {k:.4f} ms, plain {p:.4f} ms, bound "
+            f"{b:.4f} ms ({by})"
+            for (case, dname), (k, p, b, by) in times.items())
+        return (f"{SOR_SWEEPS} sweeps, {2 * SOR_SWEEPS} launches a call; "
+                + "; ".join(lines) + f" (bars: rel <= {SOR_BAR}); median of "
+                f"20: {timing}")
+
+    def p4_main_path(self):
         import numpy as np
 
         from turbomesh_tpu_torch import cli
@@ -359,13 +555,12 @@ class Smoke:
         back = np.concatenate([b.reshape(-1, 2) for b in blocks])
         if not np.array_equal(back, coords):
             raise AssertionError(f"{ext} read-back differs from the mesh")
-        self.kernel["launches"] = launches
         return (f"T106 {len(coords)} points, {n_done} White Picard "
                 f"iterations, residual {disp:.3e}, last linear residual "
                 f"{smoother.last_linear_residual:.3e} (converged), "
                 f"{launches} zebra launches, {ext} read back bit-identical")
 
-    def p4_oracle(self):
+    def p5_oracle(self):
         import numpy as np
 
         from turbomesh_tpu_torch.smoothing.classify import classify
@@ -398,10 +593,11 @@ class Smoke:
                 f"(< {ORACLE_TOL}); device {t_dev:.2f} s (setup included), "
                 f"host direct {t_host:.2f} s")
 
-    def p5_scale4(self):
+    def p6_scale4(self):
         import numpy as np
 
         torch = self.torch
+        from turbomesh_tpu_torch.ops import zebra
         from turbomesh_tpu_torch.smoothing.classify import classify
         from turbomesh_tpu_torch.smoothing.control_function import Laplace
         from turbomesh_tpu_torch.smoothing.device import DeviceSmoother
@@ -415,12 +611,14 @@ class Smoke:
                              restart=10, max_restarts=10)
         t_setup = time.perf_counter() - t0
         cf = Laplace().init(mesh)
+        launches = zebra.ZEBRA_LAUNCHES
         t0 = time.perf_counter()
         coords, _cf, disp, iters = dev.run(mesh.flat_coords(), cf,
                                            SCALE4_PICARD_CAP,
                                            target_residual=TARGET)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        launches = zebra.ZEBRA_LAUNCHES - launches
         peak = torch.cuda.max_memory_allocated()
         if not np.all(np.isfinite(coords)):
             raise AssertionError("non-finite coordinates")
@@ -434,12 +632,65 @@ class Smoke:
                 f"{n / dt / 1e6:.4f} Mnodes/s, per iteration "
                 f"{n * iters / dt / 1e6:.4f} Mnodes/s; max_memory_allocated "
                 f"{peak / 2**20:.1f} MiB; linear rtols "
-                f"{sorted(set(dev.last_run_rtols))}")
+                f"{sorted(set(dev.last_run_rtols))}; {launches} zebra "
+                f"launches, {launches / iters:.1f} per Picard iteration")
+
+    def p7_bench(self):
+        import contextlib
+
+        torch = self.torch
+        from turbomesh_tpu_torch import bench
+        from turbomesh_tpu_torch.ops import probe, sor, zebra
+
+        tee = Tee(sys.stdout)
+        zebra.ZEBRA_LAUNCHES = sor.SOR_LAUNCHES = probe.PROBE_LAUNCHES = 0
+        with contextlib.redirect_stdout(tee):
+            rc = bench.main(["1", "--device", "cuda"])
+        torch.cuda.synchronize()
+        launches = {"zebra_half_sweep": zebra.ZEBRA_LAUNCHES,
+                    "red_black_sor": sor.SOR_LAUNCHES,
+                    "probe": probe.PROBE_LAUNCHES}
+        lines = tee.lines()
+        if rc != 0:
+            raise AssertionError(f"bench.main returned {rc}")
+        last = lines[-1]
+        if len(last.encode()) > SUMMARY_MAX_BYTES:
+            raise AssertionError(f"last line {len(last.encode())} bytes")
+        summary = json.loads(last)
+        if summary.get("card") != nvidia_smi():
+            raise AssertionError(f"summary card {summary.get('card')!r}")
+        recs = [json.loads(line) for line in lines
+                if line.startswith("{") and '"metric"' not in line]
+        keys = [bench.record_key(r) for r in recs]
+        if keys != ["scale1", "LS89", "T106", "sor"]:
+            raise AssertionError(f"entries {keys}")
+        bad = []
+        for key, r in zip(keys, recs):
+            if "error" in r:
+                bad.append(f"{key}: {r['error']}")
+            if key == "sor":
+                continue
+            frozen = r.get("frozen_continuation") or {}
+            if not (r["reached_target"] or frozen.get("reached_target")):
+                bad.append(f"{key} did not reach {TARGET}")
+            if not (r["linear_solves_converged"]
+                    and frozen.get("linear_solves_converged", True)):
+                bad.append(f"{key}: a linear solve did not converge")
+        for name, n in launches.items():
+            if n <= 0:
+                bad.append(f"{name} launched no time on the bench path")
+            self.kernels[name]["launches"] = n
+        if bad:
+            raise AssertionError("; ".join(bad))
+        return (f"bench scale 1, LS89, T106, sor: {summary['entries']}; "
+                f"value {summary['value']} {summary['unit']}, vs_baseline "
+                f"{summary['vs_baseline']}; last line {len(last.encode())} "
+                f"bytes; launches {launches}")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -453,8 +704,8 @@ def main(argv=None) -> int:
         print("error: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
-    if not (PKG / "__init__.py").exists() or not T106.exists():
-        print(f"error: {PKG.name} or the T106 example not found beside "
+    if not all(p.exists() for p in (PKG / "__init__.py", T106, LS89)):
+        print(f"error: {PKG.name} or the examples not found beside "
               f"{pathlib.Path(__file__).name}; run from a checkout",
               file=sys.stderr)
         return 1
@@ -463,11 +714,14 @@ def main(argv=None) -> int:
 
     smoke = Smoke(torch)
     steps = [(0, "0 environment", smoke.p0_env),
-             (1, "1 build", smoke.p1_build),
-             (2, "2 kernel vs plain", smoke.p2_kernel),
-             (3, "3 main path (T106, White, cli)", smoke.p3_main_path),
-             (4, "4 oracle (T106, Laplace)", smoke.p4_oracle),
-             (5, "5 scale 4 run to 1e-10", smoke.p5_scale4)]
+             (1, "1 build + probe", smoke.p1_build),
+             (2, "2 zebra kernel vs plain", smoke.p2_kernel),
+             (3, "3 SOR kernel vs plain", smoke.p3_sor),
+             (4, "4 main path (T106, White, cli)", smoke.p4_main_path),
+             (5, "5 oracle (T106, Laplace)", smoke.p5_oracle),
+             (6, "6 scale 4 run to 1e-10", smoke.p6_scale4),
+             (7, "7 main path (bench: scale 1, LS89, T106, sor)",
+              smoke.p7_bench)]
     for k, name, fn in steps:
         if k in phases:
             smoke.phase(name, fn)
@@ -475,7 +729,7 @@ def main(argv=None) -> int:
         print(f"FAILED phases: {smoke.failed}", file=sys.stderr)
         return 1
     print(nvidia_smi())
-    print(json.dumps({"kernels": [smoke.kernel]}))
+    print(json.dumps({"kernels": list(smoke.kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,7 +8,7 @@ All operands are (B, Ng, Mg) f32 planes, x/y components separate.
 ``zebra_half_sweep`` is the wrapper: a CUDA tensor launches the
 hand-written kernel ``csrc/zebra.cu`` (or raises), a CPU tensor runs the
 plain version ``zebra_half_sweep_ref``. The kernel is built with nvcc at
-first use into ``build/turbomesh_tpu_torch/`` beside the package and
+first use by ``ops._build`` into ``build/turbomesh_tpu_torch/`` and
 loaded with ctypes (plain C entry point, no PyTorch headers).
 
 Counterpart of turbomesh_tpu/ops/zebra.py (``zebra_pass``).
@@ -17,74 +17,22 @@ Counterpart of turbomesh_tpu/ops/zebra.py (``zebra_pass``).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import tempfile
 
 import torch
+
+from . import _build
 
 #: kernel launches since the last reset (chip_smoke.py reads it to show
 #: that the main path went through the kernel)
 ZEBRA_LAUNCHES = 0
 
-_SRC = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "zebra.cu"
-BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2] / "build"
-             / "turbomesh_tpu_torch")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
-
-_LIB = None
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path:
-        return path
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (PATH or CUDA_HOME/bin)")
-    return path
-
-
-def build_library() -> pathlib.Path:
-    """Compile csrc/zebra.cu into a shared library (once per source
-    version: the file name carries the source hash). Returns its path."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libzebra_{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SRC)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+_SIGNATURES = {"zebra_half_sweep": [ctypes.c_void_p] * 16
+               + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
 
 
 def load_library():
     """Build (if needed) and load the kernel library; idempotent."""
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build_library()))
-        fn = lib.zebra_half_sweep
-        fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+    return _build.load_library("zebra", _SIGNATURES)
 
 
 def _check_planes(planes):
@@ -132,8 +80,7 @@ def zebra_half_sweep(bx, by, cfp, cfq, dl, d, du, msk, sel, rx, ry, zx, zy,
             *[t.data_ptr() for t in planes],
             outx.data_ptr(), outy.data_ptr(), cp.data_ptr(),
             B, Ng, Mg, axis, stream)
-    if err != 0:
-        raise RuntimeError(f"zebra_half_sweep launch failed: cudaError {err}")
+    _build.check_launch("zebra_half_sweep", err)
     ZEBRA_LAUNCHES += 1
     return outx, outy
 
