@@ -8,22 +8,24 @@ Phases (each prints its result and wall time on its own line):
   0. environment: card name and power limit, torch and CUDA versions;
      TF32 off for matmuls and cuDNN.
   1. build the three kernels (csrc/probe.cu, zebra.cu, sor.cu) with nvcc,
-     all at once, then launch the probe first: its output must be exactly
-     i + 1.
-  2. zebra kernel vs plain PyTorch version on the card, both line axes: at
-     the unit-test shape on unit-normal planes (rtol = atol = 1e-5), and on
-     the real level-0 planes of the T106, LS89 and scale-4 meshes as the
-     device solver builds them (max |err| <= 1e-5 max |plain|, plain version in
-     f64 on the same operands); median of 20 CUDA-event timings on the
-     scale-4 planes.
+     all at once (ptxas's registers and spills printed), then launch the
+     probe first: its output must be exactly i + 1. Its time a call is
+     printed beside torch.add's on the same tile, with the host cost of
+     each step of its launch path; the comparison is reported, not held.
+  2. zebra kernel vs plain PyTorch version on the card, both line axes: on
+     unit-normal planes at (3, 14, 12) (Thomas, K = 1) and (4, 70, 200)
+     (partitioned) within rtol = atol = 1e-5, and on the real planes of
+     level 0 of the T106 and LS89 meshes and of every level of the scale-4
+     hierarchy, both colors, as the device solver builds them (max |err| <=
+     1e-5 max |plain|, plain version in f64 on the same operands); times
+     at the three level-0 shapes and of one scale-4 V-cycle's launches.
   3. SOR kernel vs plain version, 50 sweeps, f32 and f64, on (a) 256 x 256
      with a perturbed x0 and cf != 0, (b) the largest block of the scale-4
      mesh frozen at its coordinates (centred on the origin) with seeded cf
      and a perturbed interior, (c) a small mask that touches the edges
      (wrap-around).
      Bars: max |err| <= 1e-12 max |plain| in f64; in f32 <= 1e-5 max
-     |plain| against the plain version in f64. Median of 20 CUDA-event
-     timings at (a) and (b).
+     |plain| against the plain version in f64. Times at (a) and (b).
   4. main path of the CLI: ``cli.main`` on examples/T106/T106.json with
      the device solver (10 White Picard iterations, 25,118 points); the
      zebra kernel must have launched, coordinates be finite, the last
@@ -40,6 +42,10 @@ Phases (each prints its result and wall time on its own line):
      (through the frozen continuation), every linear solve converge, all
      three kernels launch, and the last line parse and fit in 1024 bytes.
      The kernel counts are set to 0 just before and read just after.
+
+Times: a call's time is a run of back-to-back calls between two CUDA
+events over the count, median of several runs (cuda_time_ms); the window
+around one call, the method of the earlier numbers, is printed beside it.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
 checkout of the repository, and when any phase fails. On success the last
@@ -87,6 +93,16 @@ SOR_SWEEPS = 50
 # plain version run in f64 on the same (f32) operands
 SOR_BAR = {"float64": 1e-12, "float32": 1e-5}
 SUMMARY_MAX_BYTES = 1024
+# timing: runs of back-to-back calls per measurement, and launches a run
+TIMING_REPS = 11
+PROBE_RUN = 200
+PROBE_TURNS = 20
+ZEBRA_RUN = 50
+PLAIN_RUN = 3
+SOR_RUN = 10
+# the scale-4 run to 1e-10 before the partitioned zebra kernel (PERF.md §5
+# table, same card type and power limit): seconds, Picard iterations
+EARLIER_SCALE4 = (38.27, 15)
 
 # Bounds: H100 SXM peaks from NVIDIA's data sheet (700 W): device memory
 # 3.35 TB/s; outside the tensor cores 67 TFLOP/s in f32, 34 in f64.
@@ -140,14 +156,15 @@ def zebra_inputs(torch, shape, seed):
                             device="cuda") for a in arrs]
 
 
-def level0_sweeps(mesh, device, seed):
-    """(axis, operands) of one zebra half-sweep per line direction on
-    level 0 of the glued hierarchy the device solver builds for ``mesh``:
-    the real ghost-framed metric planes, line tridiagonals, masks and
-    colors, from a seeded random control function (P != Q, |P|, |Q| ~
-    0.1). rx, ry are diag * u and zx, zy are u for unit-normal u, so the
-    r and A z terms of the residual weigh alike and a wrong stencil term
-    shows."""
+def level_sweeps(mesh, device, seed, colors=(0,)):
+    """Per level of the glued hierarchy the device solver builds for
+    ``mesh``, the (axis, operands) of zebra half-sweeps on that level: the
+    real ghost-framed metric planes, line tridiagonals, masks and colors,
+    from a seeded random control function (P != Q, |P|, |Q| ~ 0.1). rx, ry
+    are diag * u and zx, zy are u for unit-normal u, so the r and A z terms
+    of the residual weigh alike and a wrong stencil term shows. For each
+    color in ``colors`` one sweep per line direction (axis 0 with sel_j,
+    axis 1 with sel_i), in the order of ``multigrid._smooth_glued``."""
     import numpy as np
     import torch
 
@@ -159,15 +176,53 @@ def level0_sweeps(mesh, device, seed):
     cf = 0.1 * rng.standard_normal((mesh.num_points, 2))
     X, C = dev._upload(mesh.flat_coords(), cf)
     base, _ = dev._stage_base(X, C)
-    zb = dev._stage_prepare32(base, C)["mg"][0]["zebra"]
-    shape = tuple(zb["bx"].shape)
-    u = [torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
-                         device=device) for _ in range(4)]
-    diag = zb["li"][1]
-    r = [(diag * u[0]).contiguous(), (diag * u[1]).contiguous(), u[2], u[3]]
-    head = [zb["bx"], zb["by"], zb["cfp"], zb["cfq"]]
-    return [(0, head + [*zb["li"], zb["msk"], zb["sel_j"][0], *r]),
-            (1, head + [*zb["lj"], zb["msk"], zb["sel_i"][1], *r])]
+    out = []
+    for level in dev._stage_prepare32(base, C)["mg"]:
+        zb = level["zebra"]
+        shape = tuple(zb["bx"].shape)
+        u = [torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                             device=device) for _ in range(4)]
+        diag = zb["li"][1]
+        r = [(diag * u[0]).contiguous(), (diag * u[1]).contiguous(), u[2],
+             u[3]]
+        head = [zb["bx"], zb["by"], zb["cfp"], zb["cfq"]]
+        sweeps = [(0, head + [*zb["li"], zb["msk"], zb["sel_j"][c], *r])
+                  for c in colors]
+        sweeps += [(1, head + [*zb["lj"], zb["msk"], zb["sel_i"][c], *r])
+                   for c in colors]
+        out.append(sweeps)
+    return out
+
+
+def level0_sweeps(mesh, device, seed):
+    """(axis, operands) of one zebra half-sweep per line direction on
+    level 0 (``level_sweeps``), axis 0 with the even-column color and
+    axis 1 with the odd-row one."""
+    sweeps = level_sweeps(mesh, device, seed, colors=(0, 1))[0]
+    return [sweeps[0], sweeps[3]]
+
+
+def vcycle_calls(levels):
+    """The zebra half-sweeps of one V-cycle (``multigrid.v_cycle_glued``),
+    in order, from ``level_sweeps(..., colors=(0, 1))``: PRE_SMOOTH +
+    POST_SMOOTH smooths on each level above the coarsest, COARSE_ITERS on
+    the coarsest, each smooth four half-sweeps."""
+    from turbomesh_tpu_torch.smoothing import multigrid as mg
+
+    calls = []
+    for lvl, sweeps in enumerate(levels):
+        smooths = (mg.COARSE_ITERS if lvl == len(levels) - 1
+                   else mg.PRE_SMOOTH + mg.POST_SMOOTH)
+        calls += sweeps * smooths
+    return calls
+
+
+def ptxas_report(log):
+    """ptxas's lines on each kernel (its mangled name, then registers and
+    spills) from nvcc's -Xptxas -v output."""
+    keep = ("Compiling entry function", "spill stores", "Used ")
+    return [line.strip() for line in log.splitlines()
+            if any(k in line for k in keep)]
 
 
 def bound_ms(nbytes, flops, dtype_name):
@@ -244,20 +299,66 @@ def max_rel_err(got, want) -> float:
                for g, w in zip(got, want))
 
 
-def cuda_median_ms(torch, fn, reps=20):
-    """Median of ``reps`` CUDA-event timings of fn() (after a warm-up)."""
-    fn()
+def cuda_time_ms(torch, fn, launches, reps=TIMING_REPS):
+    """(per-call ms, one-call ms) of fn() on the card. The first: a run of
+    ``launches`` back-to-back calls between two CUDA events, over the
+    count, median of ``reps`` runs after one warm-up run; a call that is
+    quicker on the card than on the host is timed at its host rate, as a
+    caller that launches it repeatedly sees it. The second: the median of
+    ``reps`` windows around one call each (the method of the earlier
+    numbers in PERF.md)."""
+    def window(count):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(count):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / count
+
+    window(launches)
+    many = sorted(window(launches) for _ in range(reps))
+    one = sorted(window(1) for _ in range(reps))
+    return many[reps // 2], one[reps // 2]
+
+
+def graph_us(torch, fn, calls=200, reps=11):
+    """Device time of one fn() call, in us: ``calls`` calls captured in a
+    CUDA graph, the median of ``reps`` replays over the count. No host
+    work is left in the window, so this is what the card spends."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        keep = [fn() for _ in range(calls)]
+    graph.replay()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        graph.replay()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
+        times.append(start.elapsed_time(end) / calls * 1e3)
+    del keep, graph
+    return sorted(times)[reps // 2]
+
+
+def host_us(fn, calls=2000):
+    """Median over 5 runs of the host time of one fn() call, in us, from a
+    run of ``calls`` calls (host clock; fn must not wait for the card)."""
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+    return sorted(runs)[2]
 
 
 class Smoke:
@@ -344,17 +445,68 @@ class Smoke:
         probe.check_card("cuda")
         x = torch.randn(probe.SHAPE, device="cuda")
         err = float((probe.probe(x) - probe.probe_ref(x)).abs().max())
-        ms = cuda_median_ms(torch, lambda: probe.probe(x))
-        plain = cuda_median_ms(torch, lambda: probe.probe_ref(x))
-        lib = cuda_median_ms(torch, lambda: torch.add(x, 1.0))
+        # a call of each is host-bound and the host drifts: PROBE_TURNS
+        # alternating turns (kernel, plain, library, library, plain,
+        # kernel, ...), the median of each one's turns
+        fns = {"kernel": lambda: probe.probe(x),
+               "plain": lambda: probe.probe_ref(x),
+               "torch.add": lambda: torch.add(x, 1.0)}
+        runs = {name: [] for name in fns}
+        for turn in range(PROBE_TURNS):
+            for name in (fns if turn % 2 == 0 else reversed(fns)):
+                runs[name].append(cuda_time_ms(torch, fns[name], PROBE_RUN,
+                                               reps=5))
+        t = {name: (sorted(r[0] for r in rs)[len(rs) // 2],
+                    sorted(r[1] for r in rs)[len(rs) // 2])
+             for name, rs in runs.items()}
         b_ms, b_by = bound_ms(2 * x.numel() * 4, x.numel(), "float32")
-        self.kernels["probe"].update(max_abs_err=err, ms=ms, plain_ms=plain,
-                                     bound_ms=b_ms, bound_by=b_by,
-                                     library_ms=lib)
+        self.kernels["probe"].update(
+            max_abs_err=err, ms=t["kernel"][0], plain_ms=t["plain"][0],
+            bound_ms=b_ms, bound_by=b_by, library_ms=t["torch.add"][0])
+        # the host cost of each step of the probe's launch path
+        out = torch.empty_like(x)
+        entry = probe.load_library().probe_add_one
+        stream = torch._C._cuda_getCurrentRawStream(0)
+        steps = {
+            "checks": lambda: (x.dtype != torch.float32,
+                               x.is_contiguous(), x.is_cuda),
+            "torch.empty_like": lambda: torch.empty_like(x),
+            "stream": lambda: torch._C._cuda_getCurrentRawStream(0),
+            "data_ptr x2, get_device": lambda: (x.data_ptr(), out.data_ptr(),
+                                                x.get_device()),
+            "entry point (launch)": lambda: entry(x.data_ptr(),
+                                                  out.data_ptr(), 1024, 0,
+                                                  stream),
+            "probe()": lambda: probe.probe(x),
+            "torch.add": lambda: torch.add(x, 1.0)}
+        host = {name: host_us(fn) for name, fn in steps.items()}
+        torch.cuda.synchronize()
+        device = {name: graph_us(torch, fns[name])
+                  for name in ("kernel", "torch.add")}
+        for path in paths:
+            print(f"  ptxas {path.name}:\n    " + "\n    ".join(ptxas_report(
+                _build.log_path(path).read_text())), flush=True)
+        timing = "; ".join(f"{name} {ms:.5f} ms ({one:.5f} ms one-call "
+                           f"window)" for name, (ms, one) in t.items())
+        print(f"  probe a call: {timing}; host us: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in host.items())
+              + "; device us a call (CUDA graph of 200): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in device.items()),
+              flush=True)
+        wins = sum(k[0] <= a[0] for k, a in zip(runs["kernel"],
+                                                  runs["torch.add"]))
+        verdict = ("at or below" if t["kernel"][0] <= t["torch.add"][0]
+                   else "above") + (f" torch.add; at or below it in {wins} "
+                                    f"of {PROBE_TURNS} turns")
         return (f"built {', '.join(p.name for p in paths)} in {t_build:.2f} s "
-                f"(parallel nvcc); probe (8, 128) exact (i + 1), median of "
-                f"20: kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.add "
-                f"{lib:.4f} ms, bound {b_ms:.2e} ms ({b_by})")
+                f"(parallel nvcc); probe (8, 128) exact (i + 1); a call, "
+                f"median of {PROBE_TURNS} turns of 5 x {PROBE_RUN} "
+                f"back-to-back calls: {timing} (kernel {verdict}); "
+                f"bound {b_ms:.2e} ms "
+                f"({b_by}); host us a call, median of 5 runs of 2000: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in host.items())
+                + "; device us a call, in a CUDA graph of 200 calls: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in device.items()))
 
     def p2_kernel(self):
         torch = self.torch
@@ -371,63 +523,91 @@ class Smoke:
             return ker, ref, err
 
         worst = 0.0
-        ops = zebra_inputs(torch, (3, 14, 12), seed=0)
-        for axis in (0, 1):
-            ker, ref, err = compare(ops, axis)
-            worst = max(worst, err)
-            for a, b in zip(ker, ref):
-                torch.testing.assert_close(a, b, rtol=KERNEL_RTOL,
-                                           atol=KERNEL_ATOL)
-        lines = [f"(3, 14, 12) unit-normal planes within rtol=atol="
-                 f"{KERNEL_RTOL}, max |err| {worst:.3e}"]
-
-        # the main path's level-0 planes; the plain version also runs in
-        # f64 on the same operands to show each f32 solver's own error
-        bad = []
-        for name in ("t106", "ls89", "scale4"):
-            sweeps = level0_sweeps(self.mesh(name), "cuda", seed=1)
-            for axis, ops in sweeps:
-                ker, ref32, err32 = compare(ops, axis)
-                ref = zebra.zebra_half_sweep_ref(
-                    *[o.double() for o in ops], axis=axis)
-                ker64 = [a.double() for a in ker]
-                err = max(float((a - b).abs().max())
-                          for a, b in zip(ker64, ref))
+        lines = []
+        for shape in ((3, 14, 12), (4, 70, 200)):
+            ops = zebra_inputs(torch, shape, seed=0)
+            for axis in (0, 1):
+                ker, ref, err = compare(ops, axis)
                 worst = max(worst, err)
-                rel = max_rel_err(ker64, ref)
-                rel_plain = max_rel_err([b.double() for b in ref32], ref)
-                rel32 = max_rel_err(ker, ref32)
-                lines.append(
-                    f"{name} {tuple(ops[0].shape)} axis {axis}: vs f64 plain "
-                    f"max |err| {err:.3e}, rel {rel:.3e} (f32 plain's own "
-                    f"rel {rel_plain:.3e}; kernel vs f32 plain rel "
-                    f"{rel32:.3e}, max |err| {err32:.3e})")
+                for a, b in zip(ker, ref):
+                    torch.testing.assert_close(a, b, rtol=KERNEL_RTOL,
+                                               atol=KERNEL_ATOL)
+            lines.append(f"{shape} unit-normal planes within rtol=atol="
+                         f"{KERNEL_RTOL}, max |err| {worst:.3e}")
+
+        # the main path's planes: level 0 of T106 and LS89, every level of
+        # scale 4, both colors of both axes; the plain version also runs in
+        # f64 on the same operands to show each f32 solver's own error
+        bad, level0 = [], {}
+        for name in ("t106", "ls89", "scale4"):
+            levels = level_sweeps(self.mesh(name), "cuda", seed=1,
+                                  colors=(0, 1))
+            if name != "scale4":
+                levels = levels[:1]
+            else:
+                vcycle = levels
+            level0[name] = levels[0]
+            for lvl, sweeps in enumerate(levels):
+                rels = {0: [], 1: []}
+                for axis, ops in sweeps:
+                    ker, ref32, _ = compare(ops, axis)
+                    ref = zebra.zebra_half_sweep_ref(
+                        *[o.double() for o in ops], axis=axis)
+                    ker64 = [a.double() for a in ker]
+                    worst = max(worst, max(float((a - b).abs().max())
+                                           for a, b in zip(ker64, ref)))
+                    rel = max_rel_err(ker64, ref)
+                    rel_plain = max_rel_err([b.double() for b in ref32], ref)
+                    rels[axis].append((rel, rel_plain))
+                    if not rel <= PLANE_RTOL:
+                        bad.append(f"{name} level {lvl} axis {axis}: rel "
+                                   f"{rel:.3e}")
+                shape = tuple(sweeps[0][1][0].shape)
+                lines.append(f"{name} level {lvl} {shape}: " + "; ".join(
+                    f"axis {a} (K={zebra.zebra_chunks(shape[1 + a])}) rel "
+                    f"{max(r for r, _ in v):.3e} (f32 plain's own "
+                    f"{max(p for _, p in v):.3e})" for a, v in rels.items()))
                 print("  " + lines[-1], flush=True)
-                if not rel <= PLANE_RTOL:
-                    bad.append(f"{name} axis {axis}: rel {rel:.3e}")
         if bad:
             raise AssertionError(f"kernel vs f64 plain above {PLANE_RTOL}: "
                                  + "; ".join(bad))
 
-        # timing at the scale-4 planes (sweeps from the loop above)
-        ms, plain = [], []
-        for axis, ops in sweeps:
-            ms.append(cuda_median_ms(
-                torch, lambda: zebra.zebra_half_sweep(*ops, axis=axis)))
-            plain.append(cuda_median_ms(
-                torch, lambda: zebra.zebra_half_sweep_ref(*ops, axis=axis)))
+        # times at the level-0 shapes (one color per axis, as the smoother
+        # runs half of each axis's sweeps with it)
+        times = {}
+        for name, sweeps in level0.items():
+            for axis, ops in (sweeps[0], sweeps[2]):
+                times[(name, axis)] = (
+                    cuda_time_ms(torch, lambda: zebra.zebra_half_sweep(
+                        *ops, axis=axis), ZEBRA_RUN),
+                    cuda_time_ms(torch, lambda: zebra.zebra_half_sweep_ref(
+                        *ops, axis=axis), PLAIN_RUN, reps=3))
+        calls = vcycle_calls(vcycle)
+
+        def run_vcycle():
+            for axis, ops in calls:
+                zebra.zebra_half_sweep(*ops, axis=axis)
+
+        v_ms, v_one = cuda_time_ms(torch, run_vcycle, 5)
         # 13 input planes read once, 2 output planes written once
-        points = sweeps[0][1][0].numel()
+        points = level0["scale4"][0][1][0].numel()
         b_ms, b_by = bound_ms(15 * 4 * points, ZEBRA_FLOPS_PER_POINT * points,
                               "float32")
+        s4 = [times[("scale4", a)] for a in (0, 1)]
         self.kernels["zebra_half_sweep"].update(
-            max_abs_err=worst, ms=sum(ms) / 2, plain_ms=sum(plain) / 2,
-            bound_ms=b_ms, bound_by=b_by)
-        return ("kernel vs plain, both axes: " + "; ".join(lines)
-                + f" (bar max |err| <= {PLANE_RTOL} max |f64 plain|); scale-4 "
-                f"planes median of 20: kernel axis0 {ms[0]:.4f} ms, axis1 "
-                f"{ms[1]:.4f} ms; plain axis0 {plain[0]:.4f} ms, axis1 "
-                f"{plain[1]:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+            max_abs_err=worst, ms=(s4[0][0][0] + s4[1][0][0]) / 2,
+            plain_ms=(s4[0][1][0] + s4[1][1][0]) / 2, bound_ms=b_ms,
+            bound_by=b_by)
+        timing = "; ".join(
+            f"{name} {tuple(level0[name][0][1][0].shape)} axis {axis}: kernel "
+            f"{k[0]:.4f} ms ({k[1]:.4f} one-call), plain {p[0]:.4f} ms"
+            for (name, axis), (k, p) in times.items())
+        return ("kernel vs plain: " + "; ".join(lines)
+                + f" (bar max |err| <= {PLANE_RTOL} max |f64 plain|); a call, "
+                f"median of {TIMING_REPS} runs of {ZEBRA_RUN} (plain "
+                f"{PLAIN_RUN}): {timing}; scale-4 level-0 bound {b_ms:.4f} ms "
+                f"({b_by}); one scale-4 V-cycle's {len(calls)} launches "
+                f"{v_ms:.4f} ms ({v_one:.4f} one-run window)")
 
     def p3_sor(self):
         import numpy as np
@@ -478,10 +658,10 @@ class Smoke:
         times = {}
         for (case, dname), (base, cf, x0, mask) in timed.items():
             times[(case, dname)] = (
-                cuda_median_ms(torch, lambda: sor.red_black_sor(
-                    base, cf, x0, mask, 1.5, SOR_SWEEPS)),
-                cuda_median_ms(torch, lambda: sor.red_black_sor_ref(
-                    base, cf, x0, mask, 1.5, SOR_SWEEPS)))
+                cuda_time_ms(torch, lambda: sor.red_black_sor(
+                    base, cf, x0, mask, 1.5, SOR_SWEEPS), SOR_RUN)[0],
+                cuda_time_ms(torch, lambda: sor.red_black_sor_ref(
+                    base, cf, x0, mask, 1.5, SOR_SWEEPS), 1, reps=3)[0])
             elem = 4 if dname == "float32" else 8
             b_ms, b_by = bound_ms(
                 x0.numel() // 2 * (8 * elem + 1),
@@ -497,8 +677,9 @@ class Smoke:
             f"{b:.4f} ms ({by})"
             for (case, dname), (k, p, b, by) in times.items())
         return (f"{SOR_SWEEPS} sweeps, {2 * SOR_SWEEPS} launches a call; "
-                + "; ".join(lines) + f" (bars: rel <= {SOR_BAR}); median of "
-                f"20: {timing}")
+                + "; ".join(lines) + f" (bars: rel <= {SOR_BAR}); a call, "
+                f"median of {TIMING_REPS} runs of {SOR_RUN} back-to-back "
+                f"calls (plain: 3 single calls): {timing}")
 
     def p4_main_path(self):
         import numpy as np
@@ -628,7 +809,9 @@ class Smoke:
         p = dev.plan
         return (f"scale 4: {n} points (padded {p.B}x{p.N}x{p.M}), "
                 f"{iters} Picard iterations to residual {disp:.3e} in "
-                f"{dt:.2f} s (setup {t_setup:.2f} s); run-to-target "
+                f"{dt:.2f} s (earlier record, PERF.md: {EARLIER_SCALE4[0]} s, "
+                f"{EARLIER_SCALE4[1]} iterations; setup {t_setup:.2f} s); "
+                f"run-to-target "
                 f"{n / dt / 1e6:.4f} Mnodes/s, per iteration "
                 f"{n * iters / dt / 1e6:.4f} Mnodes/s; max_memory_allocated "
                 f"{peak / 2**20:.1f} MiB; linear rtols "
@@ -691,7 +874,7 @@ class Smoke:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="0,1,2,3,4,5,6,7",
-                    help="comma-separated phases to run (default: all)")
+                    help="comma-separated phases to run (default: 0-7)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 

@@ -36,7 +36,7 @@ from turbomesh_tpu_torch.smoothing.device import DeviceSmoother
 from turbomesh_tpu_torch.smoothing.system import SparseSystem
 
 from test_torch_frontend import ROOT, SMALL_O4H
-from test_torch_zebra import thomas_half_sweep
+from test_torch_zebra import partitioned_half_sweep
 
 torch.set_num_threads(1)
 
@@ -110,11 +110,11 @@ def test_solve_matches_oracle_and_jax(case):
 @pytest.mark.parametrize("case", ["periodic_sliding", "o4h"])
 def test_solve_with_kernel_arithmetic_matches_oracle_and_jax(case,
                                                              monkeypatch):
-    """The card's smoother arithmetic (Thomas elimination along the lines,
-    as the CUDA kernel does it; the CPU path runs PCR) inside the whole
-    linearized solve, White control function: 1e-10 against the oracle
-    and JAX DeviceSmoother.solve."""
-    monkeypatch.setattr(tmg, "zebra_half_sweep", thomas_half_sweep)
+    """The card's smoother arithmetic (the partitioned line solve of the
+    CUDA kernel, Thomas on lines of fewer than 16 points; the CPU path
+    runs PCR) inside the whole linearized solve, White control function:
+    1e-10 against the oracle and JAX DeviceSmoother.solve."""
+    monkeypatch.setattr(tmg, "zebra_half_sweep", partitioned_half_sweep)
     mj, mt = _meshes(case)
     info = classify(mt)
     oracle = SparseSystem(mt, info)

@@ -8,9 +8,14 @@
 // a failure raises in the wrapper (ops/probe.py).
 //
 // Bound: 8 KiB in and out at 3.35 TB/s, a few nanoseconds; any real call
-// is launch latency. One thread per element, grid-stride loop.
+// is launch latency, and on the host the wrapper's path: ops/_build.py
+// launch passes the device ordinal and PyTorch's current stream straight
+// to this entry point, which switches device only when it must
+// (launch.cuh). One thread per element, grid-stride loop.
 
 #include <cuda_runtime.h>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -24,10 +29,13 @@ __global__ void probe_kernel(const float* __restrict__ in,
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). Launches on `stream` and
-// returns cudaGetLastError() of the launch (0 = success).
-extern "C" int probe_add_one(const float* in, float* out, long n,
-                             void* stream) {
+// Entry point probe_add_one of the extension module probe. Launches on
+// `stream` on `device` and returns cudaGetLastError() of the launch (0 =
+// success).
+static int probe_add_one(const float* in, float* out, long n, int device,
+                         void* stream) {
+  turbomesh::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   const int threads = 128;
   long blocks = (n + threads - 1) / threads;
   if (blocks > 1024) blocks = 1024;
@@ -37,3 +45,9 @@ extern "C" int probe_add_one(const float* in, float* out, long n,
   }
   return (int)cudaGetLastError();
 }
+
+static PyMethodDef methods[] = {
+    turbomesh::method<probe_add_one>("probe_add_one"),
+    {nullptr, nullptr, 0, nullptr}};
+
+TURBOMESH_MODULE(probe, methods)

@@ -30,7 +30,7 @@
 //    plain version in f64) of max |plain| in chip_smoke.py.
 //
 // Design: one thread per point, one launch per colored half-sweep (2 *
-// sweeps launches per call, issued from the C entry point below).
+// sweeps launches per call, issued from the entry point below).
 //
 // Bound. The function reads base, cf, x0 (6 values a point) and the mask,
 // and writes x (2 values): at the scale-4 block (881 x 161 = 141,841
@@ -50,6 +50,8 @@
 // half-sweeps, or the block kept in shared memory / L2) is later work.
 
 #include <cuda_runtime.h>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -115,7 +117,9 @@ __global__ void rb_sor_half_sweep_kernel(const T* __restrict__ base,
 template <typename T>
 int red_black_sor(const T* base, const T* cf, const unsigned char* mask,
                   const T* x0, T* tmp, T* out, int N, int M, double omega,
-                  int sweeps, void* stream) {
+                  int sweeps, int device, void* stream) {
+  turbomesh::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   const long n = (long)N * M;
   const int threads = 256;
   const long blocks = (n + threads - 1) / threads;
@@ -139,21 +143,13 @@ int red_black_sor(const T* base, const T* cf, const unsigned char* mask,
 
 }  // namespace
 
-// Plain C entry points (loaded with ctypes): 2 * sweeps launches on
-// `stream`, the result in `out`; `tmp` is caller-allocated scratch of the
-// same shape. Return the first failed launch's cudaError (0 = success).
-extern "C" int red_black_sor_f32(const float* base, const float* cf,
-                                 const unsigned char* mask, const float* x0,
-                                 float* tmp, float* out, int N, int M,
-                                 double omega, int sweeps, void* stream) {
-  return red_black_sor<float>(base, cf, mask, x0, tmp, out, N, M, omega,
-                              sweeps, stream);
-}
+// Entry points red_black_sor_f32 / _f64 of the extension module sor: 2 *
+// sweeps launches on `stream` on `device`, the result in `out`; `tmp` is
+// caller-allocated scratch of the same shape. They return the first failed
+// launch's cudaError (0 = success).
+static PyMethodDef methods[] = {
+    turbomesh::method<red_black_sor<float>>("red_black_sor_f32"),
+    turbomesh::method<red_black_sor<double>>("red_black_sor_f64"),
+    {nullptr, nullptr, 0, nullptr}};
 
-extern "C" int red_black_sor_f64(const double* base, const double* cf,
-                                 const unsigned char* mask, const double* x0,
-                                 double* tmp, double* out, int N, int M,
-                                 double omega, int sweeps, void* stream) {
-  return red_black_sor<double>(base, cf, mask, x0, tmp, out, N, M, omega,
-                               sweeps, stream);
-}
+TURBOMESH_MODULE(sor, methods)

@@ -11,8 +11,6 @@ broken toolchain shows before any real work.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import _build
@@ -23,13 +21,12 @@ PROBE_LAUNCHES = 0
 #: the probe's tile, as in the TPU kernel
 SHAPE = (8, 128)
 
-_SIGNATURES = {"probe_add_one": [ctypes.c_void_p, ctypes.c_void_p,
-                                 ctypes.c_long, ctypes.c_void_p]}
+_ENTRY = None   # the loaded entry point
 
 
 def load_library():
     """Build (if needed) and load csrc/probe.cu; idempotent."""
-    return _build.load_library("probe", _SIGNATURES)
+    return _build.load_library("probe")
 
 
 def probe_ref(x: torch.Tensor) -> torch.Tensor:
@@ -40,22 +37,20 @@ def probe_ref(x: torch.Tensor) -> torch.Tensor:
 def probe(x: torch.Tensor) -> torch.Tensor:
     """``x + 1`` for a contiguous f32 tensor: the kernel on a CUDA tensor
     (or raise), the plain version on a CPU tensor."""
-    global PROBE_LAUNCHES
-    if x.dtype != torch.float32:
+    global PROBE_LAUNCHES, _ENTRY
+    if x.dtype is not torch.float32:
         raise TypeError(f"probe takes float32, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("probe takes a contiguous tensor")
-    if x.device.type == "cpu":
-        return probe_ref(x)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.is_cpu:
+            return probe_ref(x)
         raise RuntimeError(f"probe: unsupported device {x.device}")
-    lib = load_library()
+    if _ENTRY is None:
+        _ENTRY = load_library().probe_add_one
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.probe_add_one(x.data_ptr(), out.data_ptr(), x.numel(),
-                                stream)
-    _build.check_launch("probe_add_one", err)
+    _build.launch(_ENTRY, x.get_device(), x.data_ptr(), out.data_ptr(),
+                  x.numel())
     PROBE_LAUNCHES += 1
     return out
 

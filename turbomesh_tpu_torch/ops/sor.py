@@ -13,8 +13,6 @@ call) or raises; a CPU tensor runs the plain version
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import _build
@@ -22,16 +20,13 @@ from . import _build
 #: kernel launches (colored half-sweeps) since the last reset
 SOR_LAUNCHES = 0
 
-_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
-         + [ctypes.c_double, ctypes.c_int, ctypes.c_void_p])
-_SIGNATURES = {"red_black_sor_f32": _ARGS, "red_black_sor_f64": _ARGS}
 _ENTRY = {torch.float32: "red_black_sor_f32",
           torch.float64: "red_black_sor_f64"}
 
 
 def load_library():
     """Build (if needed) and load csrc/sor.cu; idempotent."""
-    return _build.load_library("sor", _SIGNATURES)
+    return _build.load_library("sor")
 
 
 def _check(base, cf, x0, interior_mask):
@@ -75,19 +70,15 @@ def red_black_sor(base, cf, x0, interior_mask, omega: float = 1.5,
         raise RuntimeError(f"red_black_sor: unsupported device {dev}")
     if sweeps <= 0:
         return x0.clone()
-    lib = load_library()
+    entry = getattr(load_library(), _ENTRY[x0.dtype])
     N, M = x0.shape[:2]
     base, cf, x0 = _aligned(base), _aligned(cf), _aligned(x0)
     mask = interior_mask.contiguous()
     out = torch.empty_like(x0)
     tmp = torch.empty_like(x0)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, _ENTRY[x0.dtype])(
-            base.data_ptr(), cf.data_ptr(), mask.data_ptr(), x0.data_ptr(),
-            tmp.data_ptr(), out.data_ptr(), N, M, float(omega), int(sweeps),
-            stream)
-    _build.check_launch("red_black_sor", err)
+    _build.launch(entry, x0.get_device(), base.data_ptr(), cf.data_ptr(),
+                  mask.data_ptr(), x0.data_ptr(), tmp.data_ptr(),
+                  out.data_ptr(), N, M, float(omega), int(sweeps))
     SOR_LAUNCHES += 2 * int(sweeps)
     return out
 

@@ -8,15 +8,15 @@ All operands are (B, Ng, Mg) f32 planes, x/y components separate.
 ``zebra_half_sweep`` is the wrapper: a CUDA tensor launches the
 hand-written kernel ``csrc/zebra.cu`` (or raises), a CPU tensor runs the
 plain version ``zebra_half_sweep_ref``. The kernel is built with nvcc at
-first use by ``ops._build`` into ``build/turbomesh_tpu_torch/`` and
-loaded with ctypes (plain C entry point, no PyTorch headers).
+first use by ``ops._build`` into ``build/turbomesh_tpu_torch/`` as an
+extension module (no PyTorch headers). It solves
+each line by a partitioned elimination over ``zebra_chunks(n)`` chunks;
+``tests/test_torch_zebra.py`` emulates that arithmetic on the CPU.
 
 Counterpart of turbomesh_tpu/ops/zebra.py (``zebra_pass``).
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -26,29 +26,43 @@ from . import _build
 #: that the main path went through the kernel)
 ZEBRA_LAUNCHES = 0
 
-_SIGNATURES = {"zebra_half_sweep": [ctypes.c_void_p] * 16
-               + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
+#: the kernel cuts each line into chunks of at least MIN_CHUNK points, at
+#: most MAX_CHUNKS of them (a warp's lanes along axis 1, a CTA's warps
+#: along axis 0)
+MIN_CHUNK = 8
+MAX_CHUNKS = 32
+
+_ENTRY = None   # the loaded entry point
 
 
 def load_library():
     """Build (if needed) and load the kernel library; idempotent."""
-    return _build.load_library("zebra", _SIGNATURES)
+    return _build.load_library("zebra")
+
+
+def zebra_chunks(n: int) -> int:
+    """K, the chunks a line of ``n`` points is cut into by the kernel's
+    partitioned solve: one per MIN_CHUNK points, at most MAX_CHUNKS. K = 1
+    (lines of fewer than 2 * MIN_CHUNK points) is Thomas along the whole
+    line. Chunk k holds the points [k n / K, (k + 1) n / K)."""
+    return max(1, min(MAX_CHUNKS, n // MIN_CHUNK))
 
 
 def _check_planes(planes):
     ref = planes[-1]
-    if ref.dim() != 3:
-        raise ValueError(f"zebra planes must be (B, Ng, Mg), got {tuple(ref.shape)}")
+    shape, device = ref.shape, ref.device
+    if len(shape) != 3:
+        raise ValueError(f"zebra planes must be (B, Ng, Mg), got {tuple(shape)}")
     for t in planes:
-        if t.device != ref.device:
-            raise ValueError("zebra planes must share one device")
         if t.dtype != torch.float32:
             raise TypeError(f"zebra planes must be float32, got {t.dtype}")
-        if t.shape != ref.shape:
+        if t.shape != shape:
             raise ValueError(f"zebra plane shape {tuple(t.shape)} != "
-                             f"{tuple(ref.shape)}")
+                             f"{tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError("zebra planes must be contiguous")
+        if t.device != device:
+            raise ValueError("zebra planes must share one device")
 
 
 def zebra_half_sweep(bx, by, cfp, cfq, dl, d, du, msk, sel, rx, ry, zx, zy,
@@ -58,31 +72,27 @@ def zebra_half_sweep(bx, by, cfp, cfq, dl, d, du, msk, sel, rx, ry, zx, zy,
     ``axis``: line direction within a plane (0 = i-lines, 1 = j-lines);
     ``msk`` = smooth mask, ``sel`` = msk x color parity; (dl, d, du) the
     line tridiagonals (identity rows decouple the chains). CPU tensors run
-    the plain version; CUDA tensors launch the kernel or raise."""
-    global ZEBRA_LAUNCHES
+    the plain version; CUDA tensors launch the kernel (on PyTorch's current
+    stream) or raise."""
+    global ZEBRA_LAUNCHES, _ENTRY
     planes = (bx, by, cfp, cfq, dl, d, du, msk, sel, rx, ry, zx, zy)
-    if axis not in (0, 1):
+    if axis != 0 and axis != 1:
         raise ValueError(f"axis must be 0 or 1, got {axis!r}")
     _check_planes(planes)
-    dev = zx.device
-    if dev.type == "cpu":
-        return zebra_half_sweep_ref(*planes, axis=axis)
-    if dev.type != "cuda":
-        raise RuntimeError(f"zebra_half_sweep: unsupported device {dev}")
-    lib = load_library()
+    if not zx.is_cuda:
+        if zx.is_cpu:
+            return zebra_half_sweep_ref(*planes, axis=axis)
+        raise RuntimeError(f"zebra_half_sweep: unsupported device {zx.device}")
+    if _ENTRY is None:
+        _ENTRY = load_library().zebra_half_sweep
     B, Ng, Mg = zx.shape
-    outx = torch.empty_like(zx)
-    outy = torch.empty_like(zy)
-    cp = torch.empty_like(zx)  # normalized super-diagonal scratch
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.zebra_half_sweep(
-            *[t.data_ptr() for t in planes],
-            outx.data_ptr(), outy.data_ptr(), cp.data_ptr(),
-            B, Ng, Mg, axis, stream)
-    _build.check_launch("zebra_half_sweep", err)
+    # outx, outy, then the kernel's scratch: four f64 planes
+    out = torch.empty((10, B, Ng, Mg), dtype=torch.float32, device=zx.device)
+    _build.launch(_ENTRY, zx.get_device(),
+                  *[t.data_ptr() for t in planes], out.data_ptr(),
+                  B, Ng, Mg, axis, zebra_chunks(Mg if axis else Ng))
     ZEBRA_LAUNCHES += 1
-    return outx, outy
+    return out[0], out[1]
 
 
 # ---------------------------------------------------------------------------
