@@ -25,7 +25,10 @@ Phases (each prints its result and wall time on its own line):
      and a perturbed interior, (c) a small mask that touches the edges
      (wrap-around).
      Bars: max |err| <= 1e-12 max |plain| in f64; in f32 <= 1e-5 max
-     |plain| against the plain version in f64. Times at (a) and (b).
+     |plain| against the plain version in f64. A call must launch
+     ``sor_launches(SOR_SWEEPS, s)`` kernels (s from ``sor_schedule``);
+     the schedule (tile, s, CTA, shared memory) and ptxas's report of the
+     kernel are printed. Times at (a) and (b).
   4. main path of the CLI: ``cli.main`` on examples/T106/T106.json with
      the device solver (10 White Picard iterations, 25,118 points); the
      zebra kernel must have launched, coordinates be finite, the last
@@ -52,7 +55,8 @@ checkout of the repository, and when any phase fails. On success the last
 two lines are the kernels JSON object (name, route, source, replaced TPU
 kernel, launches on the bench's main path, max |err|, kernel / plain /
 library ms, and the bound: the larger of the bytes each call must move
-at 3.35 TB/s and its flops at the card's peak for their type) and
+at 3.35 TB/s and its flops at the card's peak for their type;
+red_black_sor also its launches a 256 x 256 f32 call) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}},
 preceded by the nvidia-smi name and power limit of the card.
 """
@@ -616,24 +620,31 @@ class Smoke:
         from turbomesh_tpu_torch.ops import sor
 
         lines, bad, worst = [], [], 0.0
-        timed = {}
+        timed, schedules, per_calls = {}, {}, {}
         for name, *arrs in sor_cases(np, self.mesh("scale4"), seed=7):
             for dt in (torch.float64, torch.float32):
                 dname = str(dt).split(".")[1]
                 base, cf, x0 = [torch.as_tensor(a, dtype=dt, device="cuda")
                                 for a in arrs[:3]]
                 mask = torch.as_tensor(arrs[3], device="cuda")
+                ti, tj, s, rows = sor.sor_schedule(*x0.shape[:2])
+                schedules[(x0.shape[:2], dname)] = (
+                    f"{tuple(x0.shape[:2])} {dname}: tile {ti}x{tj}, s {s}, "
+                    f"CTA 32x{rows}, "
+                    f"{sor.sor_smem_bytes(ti, tj, s, dt)} B shared")
                 before = sor.SOR_LAUNCHES
                 ker = sor.red_black_sor(base, cf, x0, mask, 1.5, SOR_SWEEPS)
                 per_call = sor.SOR_LAUNCHES - before
+                per_calls[(name[0], dname)] = per_call
                 ref = sor.red_black_sor_ref(base.double(), cf.double(),
                                             x0.double(), mask, 1.5, SOR_SWEEPS)
                 torch.cuda.synchronize()
                 if not bool(torch.isfinite(ker).all()):
                     raise AssertionError(f"non-finite SOR output, {name}")
-                if per_call != 2 * SOR_SWEEPS:
+                want_calls = sor.sor_launches(SOR_SWEEPS, s)
+                if per_call != want_calls:
                     raise AssertionError(f"{per_call} launches per call, "
-                                         f"expected {2 * SOR_SWEEPS}")
+                                         f"expected {want_calls}")
                 err = float((ker.double() - ref).abs().max())
                 rel = err / float(ref.abs().max())
                 worst = max(worst, err)
@@ -654,6 +665,12 @@ class Smoke:
         if bad:
             raise AssertionError("SOR kernel vs f64 plain above the bar: "
                                  + "; ".join(bad))
+        from turbomesh_tpu_torch.ops import _build
+
+        print("  SOR schedules: " + "; ".join(schedules.values())
+              + "\n  ptxas sor:\n    " + "\n    ".join(ptxas_report(
+                  _build.log_path(_build.build_library("sor")).read_text())),
+              flush=True)
 
         times = {}
         for (case, dname), (base, cf, x0, mask) in timed.items():
@@ -671,13 +688,15 @@ class Smoke:
         ms, plain, b_ms, b_by = times[("a", "float32")]
         self.kernels["red_black_sor"].update(
             max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=b_ms,
-            bound_by=b_by)
+            bound_by=b_by, launches_per_call=per_calls[("a", "float32")])
         timing = "; ".join(
             f"({case}) {dname}: kernel {k:.4f} ms, plain {p:.4f} ms, bound "
             f"{b:.4f} ms ({by})"
             for (case, dname), (k, p, b, by) in times.items())
-        return (f"{SOR_SWEEPS} sweeps, {2 * SOR_SWEEPS} launches a call; "
-                + "; ".join(lines) + f" (bars: rel <= {SOR_BAR}); a call, "
+        return (f"{SOR_SWEEPS} sweeps; launches a call "
+                + ", ".join(f"({c}) {d} {n}" for (c, d), n in
+                            per_calls.items())
+                + "; " + "; ".join(lines) + f" (bars: rel <= {SOR_BAR}); a call, "
                 f"median of {TIMING_REPS} runs of {SOR_RUN} back-to-back "
                 f"calls (plain: 3 single calls): {timing}")
 

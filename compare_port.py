@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time this checkout's zebra kernel and probe against another checkout's.
+"""Time this checkout's kernels against another checkout's.
 
     python3 compare_port.py DIR     # DIR: the root of another checkout
 
@@ -8,12 +8,16 @@ DIR's package ``turbomesh_tpu_torch`` is imported under the name
 own build step (into DIR/build/). Both versions then run, on one card, the
 zebra half-sweep at the level-0 planes of T106, LS89 and the scale-4
 cascade (both line axes, ``chip_smoke.level_sweeps``), one scale-4
-V-cycle's zebra launches, and the probe on its (8, 128) tile, with
-torch.add on that tile beside them. Each is timed as in chip_smoke.py
+V-cycle's zebra launches, the red-black SOR kernel (50 sweeps) at the
+bench's 256 x 256 and the centred scale-4 block in f32 and f64
+(``chip_smoke.sor_cases``; this checkout's kernel also at the other
+schedules of ``SOR_CANDIDATES``), and the probe on its (8, 128) tile,
+with torch.add on that tile beside them. Each is timed as in chip_smoke.py
 (``cuda_time_ms``: a run of back-to-back calls between two CUDA events
 over the count, median of 11 runs) in turns other, this, this, other, and
 the better of each pair is printed. Each zebra result is held against the
-plain version in f64 (max |err| <= chip_smoke.PLANE_RTOL max |plain|).
+plain version in f64 (max |err| <= chip_smoke.PLANE_RTOL max |plain|),
+each SOR result too (chip_smoke.SOR_BAR), at every schedule.
 
 Prints one line per shape and, last, one JSON object of all the times in
 ms. Exits nonzero without a card, or when a result is off the bar.
@@ -29,6 +33,9 @@ import pathlib
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent
+# other (ti, tj, s, rows) of the SOR kernel timed beside its own schedule
+SOR_CANDIDATES = [(16, 32, 16, 16), (32, 48, 8, 16), (16, 32, 8, 16),
+                  (16, 48, 8, 16), (32, 32, 16, 16), (16, 40, 12, 16)]
 
 
 def import_other(root: pathlib.Path):
@@ -55,12 +62,14 @@ def main(argv=None) -> int:
         print("error: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    import numpy as np
+
     import chip_smoke as cs
-    from turbomesh_tpu_torch.ops import probe, zebra
+    from turbomesh_tpu_torch.ops import probe, sor, zebra
 
     import_other(args.other.resolve())
     other = {name: importlib.import_module(f"other_port.ops.{name}")
-             for name in ("zebra", "probe")}
+             for name in ("zebra", "probe", "sor")}
     smoke = cs.Smoke(torch)
 
     def turns(fns, launches):
@@ -103,6 +112,44 @@ def main(argv=None) -> int:
     times[key] = turns({"other": vcycle(other["zebra"]),
                         "this": vcycle(zebra)}, 5)
     print(f"{key}: {times[key]}", flush=True)
+
+    def sor_call(mod, ops, schedule=None):
+        """A 50-sweep call of ``mod.red_black_sor``, at ``schedule`` (in
+        place of this checkout's ``sor.sor_schedule`` for the call) when
+        one is given."""
+        def run():
+            if schedule is None:
+                return mod.red_black_sor(*ops, 1.5, cs.SOR_SWEEPS)
+            keep = sor.sor_schedule
+            sor.sor_schedule = lambda *args: schedule
+            try:
+                return mod.red_black_sor(*ops, 1.5, cs.SOR_SWEEPS)
+            finally:
+                sor.sor_schedule = keep
+        return run
+
+    for name, *arrs in cs.sor_cases(np, smoke.mesh("scale4"), seed=7)[:2]:
+        for dt in (torch.float32, torch.float64):
+            dname = str(dt).split(".")[1]
+            ops = [torch.as_tensor(a, dtype=dt, device="cuda")
+                   for a in arrs[:3]]
+            ops.append(torch.as_tensor(arrs[3], device="cuda"))
+            ref = sor.red_black_sor_ref(*[o.double() for o in ops[:3]],
+                                        ops[3], 1.5, cs.SOR_SWEEPS)
+            fns = {"other": sor_call(other["sor"], ops),
+                   "this": sor_call(sor, ops)}
+            fns.update({f"this {sched}": sor_call(sor, ops, sched)
+                        for sched in SOR_CANDIDATES
+                        if sor.sor_schedule_fits(*sched, dt)})
+            for label, fn in fns.items():
+                got = fn().double()
+                rel = float((got - ref).abs().max() / ref.abs().max())
+                if not rel <= cs.SOR_BAR[dname]:
+                    bad.append(f"sor {label} {name} {dname}: rel {rel:.3e}")
+            key = (f"sor {name} {dname}, this at "
+                   f"{sor.sor_schedule(*ops[0].shape[:2])}")
+            times[key] = turns(fns, cs.SOR_RUN)
+            print(f"{key}: {times[key]}", flush=True)
     x = torch.randn(probe.SHAPE, device="cuda")
     key = f"probe {probe.SHAPE}"
     times[key] = turns({"other": lambda: other["probe"].probe(x),

@@ -202,6 +202,10 @@ def test_kernels_launch_on_the_current_stream():
              "zebra1": lambda: list(zebra.zebra_half_sweep_ref(*zops, axis=1)),
              "sor": lambda: [sor.red_black_sor_ref(base, cf, x0, mask, 1.5,
                                                    3)]}
+    # the first launch of a kernel loads its module, which may wait for
+    # the whole device (CUDA's lazy loading): load each one first
+    for launch in launches.values():
+        launch()
     s = torch.cuda.Stream()
     for name, launch in launches.items():
         torch.cuda.synchronize()

@@ -3,12 +3,15 @@
 Counterpart of turbomesh_tpu/ops/sor.py (``red_black_sor``), with its
 layout: base, cf and x0 are (N, M, 2) fields, interior_mask an (N, M)
 bool plane (points outside it are held fixed, Dirichlet), f32 or f64.
-Coefficients are recomputed from the frozen base coordinates on the fly.
+The coefficients follow from the frozen base coordinates and cf.
 
 ``red_black_sor`` is the wrapper: a CUDA tensor launches the hand-written
-kernel ``csrc/sor.cu`` (one launch per colored half-sweep, 2 * sweeps per
-call) or raises; a CPU tensor runs the plain version
-``red_black_sor_ref``. No fallback between the two.
+kernel ``csrc/sor.cu`` or raises; a CPU tensor runs the plain version
+``red_black_sor_ref``. No fallback between the two. The kernel computes
+the frozen coefficients in one launch, then runs up to s colored
+half-sweeps a launch on tiles held in shared memory, so a call is
+``sor_launches(sweeps, s)`` = 1 + ceil(2 * sweeps / s) launches;
+``sor_schedule`` picks the tile and s.
 """
 
 from __future__ import annotations
@@ -17,11 +20,63 @@ import torch
 
 from . import _build
 
-#: kernel launches (colored half-sweeps) since the last reset
+#: kernel launches since the last reset
 SOR_LAUNCHES = 0
 
 _ENTRY = {torch.float32: "red_black_sor_f32",
           torch.float64: "red_black_sor_f64"}
+
+#: shared memory a CTA may take on an H100 (227 KB)
+SMEM_LIMIT = 232_448
+# (tile rows ti, tile columns tj, half-sweeps a launch s, CTA rows of 32
+# threads), both types: small tiles and 16 half-sweeps a launch, or large
+# tiles and 8, which redo less of the halo a point but fill fewer SMs
+_SMALL = (16, 32, 16, 16)
+_LARGE = (32, 48, 8, 16)
+# take the large tiles where a block has enough of them for this share of
+# the SMs in one wave (the scale-4 block 881 x 161: 112 tiles on 132 SMs)
+_LARGE_FILL = 0.75
+_SMS: dict[int, int] = {}
+# csrc/sor.cu: a lane holds a column pair of the grown tile, a thread at
+# most this many of its rows
+_ROWS_PER_THREAD = 4
+
+
+def sor_schedule(N: int, M: int, sms: int = 132) -> tuple[int, int, int, int]:
+    """(ti, tj, s, rows) of the kernel on an N x M block on a card of
+    ``sms`` SMs: inner tiles of ti x tj points, at most s colored
+    half-sweeps a launch, CTAs of 32 x rows threads. The tiles of a block
+    are as even as its size allows (no larger than the block; tj even),
+    so that the last row and column of tiles hold little padding."""
+    tiles = -(-N // _LARGE[0]) * -(-M // _LARGE[1])
+    ti, tj, s, rows = _LARGE if tiles >= _LARGE_FILL * sms else _SMALL
+    ti = -(-N // -(-N // ti))
+    tj = -(-M // -(-M // tj))
+    return ti, tj + tj % 2, s, rows
+
+
+def sor_smem_bytes(ti: int, tj: int, s: int, dtype) -> int:
+    """Shared memory of a CTA (csrc/sor.cu smem_bytes): per point of the
+    tile grown by s, x and y and seven coefficients; a parity byte a row
+    and a column."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    h, w = ti + 2 * s, tj + 2 * s
+    return h * w * (2 + 7) * elem + h + w
+
+
+def sor_schedule_fits(ti: int, tj: int, s: int, rows: int, dtype) -> bool:
+    """Whether csrc/sor.cu takes the schedule: the grown tile at most 64
+    columns (an even number: a lane a column pair) and _ROWS_PER_THREAD *
+    rows rows, at most 512 threads, shared memory within SMEM_LIMIT."""
+    return (min(ti, tj, s, rows) >= 1 and tj % 2 == 0 and tj + 2 * s <= 64
+            and ti + 2 * s <= _ROWS_PER_THREAD * rows and 32 * rows <= 512
+            and sor_smem_bytes(ti, tj, s, dtype) <= SMEM_LIMIT)
+
+
+def sor_launches(sweeps: int, s: int) -> int:
+    """Kernel launches of a call: the coefficients' and ceil(2 * sweeps /
+    s) of the tiles, none for no sweeps."""
+    return 1 - (-2 * int(sweeps) // s) if sweeps > 0 else 0
 
 
 def load_library():
@@ -72,14 +127,25 @@ def red_black_sor(base, cf, x0, interior_mask, omega: float = 1.5,
         return x0.clone()
     entry = getattr(load_library(), _ENTRY[x0.dtype])
     N, M = x0.shape[:2]
+    index = x0.get_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    ti, tj, s, rows = sor_schedule(N, M, _SMS[index])
+    launches = sor_launches(sweeps, s)
     base, cf, x0 = _aligned(base), _aligned(cf), _aligned(x0)
     mask = interior_mask.contiguous()
     out = torch.empty_like(x0)
-    tmp = torch.empty_like(x0)
-    _build.launch(entry, x0.get_device(), base.data_ptr(), cf.data_ptr(),
-                  mask.data_ptr(), x0.data_ptr(), tmp.data_ptr(),
-                  out.data_ptr(), N, M, float(omega), int(sweeps))
-    SOR_LAUNCHES += 2 * int(sweeps)
+    # scratch: the field the tile launches alternate with (when there are
+    # two or more), then the seven coefficient planes
+    tmp_values = x0.numel() if launches > 2 else 0
+    scratch = torch.empty(tmp_values + 7 * N * M, dtype=x0.dtype, device=dev)
+    tmp = scratch.data_ptr() if tmp_values else out.data_ptr()
+    coef = scratch.data_ptr() + tmp_values * scratch.element_size()
+    _build.launch(entry, index, base.data_ptr(), cf.data_ptr(),
+                  mask.data_ptr(), x0.data_ptr(), coef, tmp, out.data_ptr(),
+                  N, M, float(omega), int(sweeps), ti, tj, s, rows)
+    SOR_LAUNCHES += launches
     return out
 
 
