@@ -45,6 +45,23 @@ Phases (each prints its result and wall time on its own line):
      (through the frozen continuation), every linear solve converge, all
      three kernels launch, and the last line parse and fit in 1024 bytes.
      The kernel counts are set to 0 just before and read just after.
+  8. the block-sharded path (parallel.ShardedSmoother, one process per
+     rank, spawned from here; each rank's counts set to 0 just before its
+     run and read just after): (a) NCCL, world 1, scale 4, Laplace, run to
+     1e-10 within 30 Picard iterations, against phase 6's result; (b)
+     gloo, world 4, all four ranks on cuda:0 (NCCL puts no two ranks on
+     one card): T106, 3 White iterations at rtol 1e-13 against
+     DeviceSmoother.run on the card, run meanwhile (coordinates and
+     control function 1e-6, residual histories rtol 1e-5), then one
+     Laplace solve at rtol 1e-15 against the host oracle (1e-10); the
+     zebra kernel must launch on every rank; (c) with two cards or more, NCCL
+     over min(4, count) cards at scale 4 to 1e-10, else reported as not
+     run. Ranks that share a card are time-sliced: (b)'s walls are a
+     correctness run, not a scaling figure.
+  9. 3-D stacked cuts (demo_3d_sharded.run_demo): 3 cuts of T106 on a
+     world of 2; the mid cut reaches 1e-10, from_cuts holds 3 x 25,118
+     points, and the CGNS-3D read-back is bit-identical where h5py is
+     installed (else the stacked Mesh3d is checked in memory).
 
 Times: a call's time is a run of back-to-back calls between two CUDA
 events over the count, median of several runs (cuda_time_ms); the window
@@ -107,6 +124,21 @@ SOR_RUN = 10
 # the scale-4 run to 1e-10 before the partitioned zebra kernel (PERF.md §5
 # table, same card type and power limit): seconds, Picard iterations
 EARLIER_SCALE4 = (38.27, 15)
+# phase 8(b): the sharded White run against DeviceSmoother.run (coords and
+# control function, residual histories: tests/test_sharded_solver.py:
+# 205-207) and the Laplace solve vs oracle. The White feedback carries any
+# difference between two solvers that meet the tolerance into the next
+# iterations: on T106 two DeviceSmoother runs that differ in the restart
+# length alone stand 2.2e-6 apart in the coordinates after 10 iterations
+# at rtol 1e-10 and 3.0e-9 at 1e-13, with 5.2e-5 in the control function
+# and 3.7e-6 in the residuals (white_sensitivity.py on the card). So both
+# runs solve to 1e-13, and for SHARDED_WHITE_ITERS iterations, not 10: ten
+# took 380 s on four ranks that share the card.
+SHARDED_WHITE_ITERS = 3
+SHARDED_RTOL, SHARDED_ATOL = 1e-13, 1e-15
+SHARDED_RUN_TOL = 1e-6
+SHARDED_HIST_RTOL = 1e-5
+SHARDED_WORLD = 4
 
 # Bounds: H100 SXM peaks from NVIDIA's data sheet (700 W): device memory
 # 3.35 TB/s; outside the tensor cores 67 TFLOP/s in f32, 34 in f64.
@@ -370,6 +402,7 @@ class Smoke:
         self.torch = torch
         self.failed = []
         self._meshes = {}
+        self._scale4 = None   # phase 6's scale-4 coordinates
         # zebra: one kernel for the four TPU decompositions of the
         # half-sweep (the default split pair, the fused PCR and the Thomas
         # variant)
@@ -825,6 +858,7 @@ class Smoke:
         if not disp < TARGET:
             raise AssertionError(f"residual {disp:.3e} not below {TARGET} "
                                  f"after {iters} Picard iterations")
+        self._scale4 = coords
         p = dev.plan
         return (f"scale 4: {n} points (padded {p.B}x{p.N}x{p.M}), "
                 f"{iters} Picard iterations to residual {disp:.3e} in "
@@ -890,10 +924,204 @@ class Smoke:
                 f"bytes; launches {launches}")
 
 
+    # -- the sharded path ----------------------------------------------------
+
+    def _spawn_tasks(self, world, backend, device, tasks):
+        """Run ``shard.run_tasks`` on a new world of ``world`` ranks; the
+        zebra kernel is built here first, so the ranks only load it."""
+        import functools
+
+        from turbomesh_tpu_torch.ops import _build
+        from turbomesh_tpu_torch.parallel import dist as pdist
+        from turbomesh_tpu_torch.parallel import shard
+
+        _build.build_library("zebra")
+        return pdist.spawn(functools.partial(shard.run_tasks, device=device),
+                           world, backend, device, args=(tasks,))
+
+    @staticmethod
+    def _ranks(recs, what):
+        """Per-rank walls, iterations, restarts per iteration, K-A launches,
+        exchanges and all_reduces of one task."""
+        return "; ".join(
+            f"rank {r['rank']}: {r['seconds']:.2f} s, "
+            + (f"{r['n_done']} Picard iterations, restarts "
+               f"{r['restart_history']}, " if "n_done" in r else
+               f"restarts {r['restarts']}, ")
+            + f"{r['zebra_launches']} zebra launches, {r['exchanges']} "
+            f"exchanges and {r['all_reduces']} all_reduces taking "
+            f"{r['collective_s']:.2f} s"
+            + (f", peak {r['peak_mib']:.1f} MiB" if "peak_mib" in r else "")
+            for r in recs) + f" ({what})"
+
+    def _sharded_scale4(self, world, name, bad):
+        """The scale-4 Laplace run to 1e-10 on a new NCCL world of
+        ``world`` ranks, a card a rank where there are cards enough (phase
+        8 (a) and (c)); appends its faults to ``bad``, returns its line."""
+        import numpy as np
+
+        from turbomesh_tpu_torch.smoothing.control_function import Laplace
+
+        s4 = self.mesh("scale4")
+        task = dict(mesh=s4, cf=Laplace().init(s4),
+                    iterations=SCALE4_PICARD_CAP, target_residual=TARGET,
+                    smoother=dict(rtol=1e-6, atol=1e-8, restart=10,
+                                  max_restarts=30))
+        t0 = time.perf_counter()
+        recs = [r[0] for r in self._spawn_tasks(world, "nccl", "cuda",
+                                                [task])]
+        name = f"{name}, {time.perf_counter() - t0:.2f} s with start-up"
+        for r in recs:
+            if r["zebra_launches"] <= 0:
+                bad.append(f"{name}: rank {r['rank']} launched no zebra "
+                           f"kernel")
+            np.testing.assert_array_equal(r["coords"], recs[0]["coords"])
+        r = recs[0]
+        if not np.all(np.isfinite(r["coords"])):
+            bad.append(f"{name}: non-finite coordinates")
+        if not r["disp"] < TARGET:
+            bad.append(f"{name}: residual {r['disp']:.3e} after "
+                       f"{r['n_done']} iterations")
+        delta = ("phase 6 not run" if self._scale4 is None else
+                 f"max |delta| vs phase 6's DeviceSmoother "
+                 f"{np.abs(r['coords'] - self._scale4).max():.3e}")
+        line = (f"{name}: {s4.num_points} points, residual {r['disp']:.3e}; "
+                f"{delta}; " + self._ranks(recs, name))
+        print("  " + line, flush=True)
+        return line
+
+    def p8c_cards(self, bad):
+        """Phase 8 (c): NCCL over min(4, count) cards, a card a rank, when
+        the machine has two or more; else the reason it did not run."""
+        count = self.torch.cuda.device_count()
+        if count < 2:
+            return (f"(c) not run: {count} CUDA device (NCCL needs a card a "
+                    f"rank)")
+        world = min(SHARDED_WORLD, count)
+        return self._sharded_scale4(
+            world, f"(c) nccl world {world}, one card a rank", bad)
+
+    def p8_sharded(self):
+        import numpy as np
+
+        from turbomesh_tpu_torch import input as input_mod
+        from turbomesh_tpu_torch.smoothing.classify import classify
+        from turbomesh_tpu_torch.smoothing.control_function import (
+            Laplace, from_config)
+        from turbomesh_tpu_torch.smoothing.device import DeviceSmoother
+        from turbomesh_tpu_torch.smoothing.system import SparseSystem
+
+        bad = []
+        # (a) NCCL, world 1, at scale 4
+        lines = [self._sharded_scale4(1, "(a) nccl world 1", bad)]
+
+        # (b) gloo, world 4, every rank on cuda:0, T106; this process runs
+        # DeviceSmoother.run on the same card meanwhile
+        from concurrent.futures import ThreadPoolExecutor
+
+        t106 = self.mesh("t106")
+        inp = input_mod.load(str(T106), base_dir=str(T106.parent))
+        white = from_config(inp.smoothing.wall_control_function)
+        lap = Laplace().init(t106)
+        tol = dict(rtol=SHARDED_RTOL, atol=SHARDED_ATOL, restart=30,
+                   max_restarts=100)
+        info = classify(t106)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(1) as pool:
+            world = pool.submit(self._spawn_tasks, SHARDED_WORLD, "gloo",
+                                "cuda:0", [
+                dict(mesh=t106, cf=white.init(t106),
+                     iterations=SHARDED_WHITE_ITERS, algorithm=white,
+                     smoother=tol),
+                dict(mesh=t106, cf=lap, solves=1,
+                     smoother=dict(rtol=1e-15, atol=1e-18, restart=30,
+                                   max_restarts=100))])
+            dev = DeviceSmoother(t106, info, device="cuda", **tol)
+            hist, dev_restarts = [], []
+            cd, cfd, _, _ = dev.run(t106.flat_coords(), white.init(t106),
+                                    SHARDED_WHITE_ITERS, algorithm=white,
+                                    residual_history=hist,
+                                    restart_history=dev_restarts)
+            t_dev = time.perf_counter() - t0
+            recs = world.result()
+        wall = time.perf_counter() - t0
+        runs, solves = [r[0] for r in recs], [r[1] for r in recs]
+        for r in runs + solves:
+            if r["zebra_launches"] <= 0:
+                bad.append(f"(b): rank {r['rank']} launched no zebra kernel")
+        for r in runs[1:]:
+            np.testing.assert_array_equal(r["coords"], runs[0]["coords"])
+            np.testing.assert_array_equal(r["cf"], runs[0]["cf"])
+        self.kernels["zebra_half_sweep"]["launches_sharded_per_rank"] = [
+            r["zebra_launches"] for r in runs]
+        e_x = float(np.abs(cd - runs[0]["coords"]).max())
+        e_cf = float(np.abs(cfd - runs[0]["cf"]).max())
+        e_h = float(np.max(np.abs(np.array(runs[0]["residual_history"])
+                                  - hist) / np.abs(hist)))
+        if not (e_x < SHARDED_RUN_TOL and e_cf < SHARDED_RUN_TOL
+                and e_h <= SHARDED_HIST_RTOL):
+            bad.append(f"(b) vs DeviceSmoother.run: coords {e_x:.3e}, cf "
+                       f"{e_cf:.3e}, histories rel {e_h:.3e}")
+        co = SparseSystem(t106, info).solve(t106.flat_coords(), lap)
+        e_o = max(float(np.abs(r["solves"][0] - co).max()) for r in solves)
+        if not e_o < ORACLE_TOL:
+            bad.append(f"(b) Laplace solve vs oracle {e_o:.3e}")
+        lines.append(
+            f"(b) gloo world {SHARDED_WORLD} on cuda:0 (time-sliced: a "
+            f"correctness run), {wall:.2f} s with start-up: T106 "
+            f"{SHARDED_WHITE_ITERS} White iterations at rtol {SHARDED_RTOL}, "
+            f"max |delta| vs the card's DeviceSmoother.run (run meanwhile, "
+            f"{t_dev:.2f} s, restarts {dev_restarts}) "
+            f"coords {e_x:.3e}, cf {e_cf:.3e} (bar {SHARDED_RUN_TOL}), "
+            f"residual histories rel {e_h:.3e} (bar "
+            f"{SHARDED_HIST_RTOL}); "
+            + self._ranks(runs, "White run")
+            + f"; Laplace solve at rtol 1e-15 vs host oracle {e_o:.3e}; "
+            + self._ranks(solves, "Laplace solve"))
+        print("  " + lines[-1], flush=True)
+
+        # (c) NCCL, a card a rank, when there are cards enough
+        lines.append(self.p8c_cards(bad))
+        if bad:
+            raise AssertionError("; ".join(bad))
+        return "; ".join(lines)
+
+    def p9_stacked_cuts(self):
+        from turbomesh_tpu_torch import demo_3d_sharded as demo
+        from turbomesh_tpu_torch.ops import _build
+
+        _build.build_library("zebra")
+        rec = demo.run_demo(n_cuts=3, picard=1, mesh_scale=1, world=2,
+                            device="cuda")
+        cuts, m3 = rec["cuts"], rec["mesh3d"]
+        mid = cuts[1]
+        bad = []
+        if not mid["reached_target"]:
+            bad.append(f"mid cut at {mid['displacement_residual']:.3e} after "
+                       f"{mid['picard_done']} iterations")
+        if m3["nodes_3d"] != 3 * 25118 or not m3["ok"]:
+            bad.append(f"3-D mesh {m3}")
+        for c in cuts:
+            if min(c["zebra_launches_per_rank"]) <= 0:
+                bad.append(f"cut {c['cut']}: a rank launched no zebra kernel")
+        if bad:
+            raise AssertionError("; ".join(bad))
+        return (f"{rec['backend']} world {rec['world']} ({rec['device']}, "
+                f"time-sliced), {rec['wall_s']:.2f} s with start-up; "
+                + "; ".join(
+                    f"cut {c['cut']} ({c['nodes']} points): "
+                    f"{c['picard_done']} Picard iterations"
+                    f"{' (frozen cf, to 1e-10)' if c['driven_to_target'] else ' (White)'}"
+                    f" in {c['run_s']:.2f} s (set-up {c['setup_s']:.2f} s), "
+                    f"residual {c['displacement_residual']:.3e}, restarts "
+                    f"{c['fgmres_restarts_per_iter']}, zebra launches per "
+                    f"rank {c['zebra_launches_per_rank']}" for c in cuts)
+                + f"; 3-D: {m3}")
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7",
-                    help="comma-separated phases to run (default: 0-7)")
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9",
+                    help="comma-separated phases to run (default: 0-9)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -923,7 +1151,11 @@ def main(argv=None) -> int:
              (5, "5 oracle (T106, Laplace)", smoke.p5_oracle),
              (6, "6 scale 4 run to 1e-10", smoke.p6_scale4),
              (7, "7 main path (bench: scale 1, LS89, T106, sor)",
-              smoke.p7_bench)]
+              smoke.p7_bench),
+             (8, "8 sharded path (nccl world 1; gloo world 4 on one card)",
+              smoke.p8_sharded),
+             (9, "9 3-D stacked cuts (demo_3d_sharded, world 2)",
+              smoke.p9_stacked_cuts)]
     for k, name, fn in steps:
         if k in phases:
             smoke.phase(name, fn)

@@ -11,6 +11,9 @@ generation for turbomachinery CFD), for an NVIDIA H100:
   operator, f32 Schur / glued-multigrid preconditioner, device-resident
   Picard loop with the White control-function update) is torch code on an
   explicit ``device``;
+- the block-sharded path (``parallel``) runs that solve with the blocks
+  cut across the ranks of a ``torch.distributed`` group, and 3-D meshes
+  come from stacked cuts (``extrude``, ``io.cgns3d``);
 - the zebra line-relaxation half-sweep is a hand-written CUDA kernel
   (``csrc/zebra.cu``, wrapper ``ops.zebra``).
 

@@ -4,11 +4,17 @@ The options of ``turbomesh`` (reference parity: src/gui/cmd.zig +
 src/gui/main.zig; exit codes 64 usage error, 66 cannot open input) plus
 ``--device``: the torch device of the ``device`` solver. The default is
 ``cuda``, and it raises when no CUDA device is present.
+
+Under ``torchrun --nproc-per-node N`` with ``--solver sharded`` (or
+``device``, which then shards) every rank builds the mesh and smooths its
+slice of the blocks on ``cuda:{local_rank}``; rank 0 alone prints, logs
+and writes the output.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import sys
 import time
@@ -31,7 +37,8 @@ def main(argv=None) -> int:
     p.add_argument("--gui", action="store_true",
                    help="open the interactive viewer window after the run")
     p.add_argument("--solver", default=None,
-                   help="override solver backend (direct | device)")
+                   help="override solver backend (direct | device | "
+                        "sharded)")
     p.add_argument("--target-residual", type=float, default=None,
                    help="stop smoothing once the residual drops below this")
     p.add_argument("--checkpoint", default=None,
@@ -45,10 +52,18 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     import torch
+    import torch.distributed as dist
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(use --device cpu)")
+    # under torchrun every rank runs this; rank 0 alone speaks and writes
+    lead = int(os.environ.get("RANK", 0)) == 0
+    say = print if lead else (lambda *a, **k: None)
+    if not lead:
+        logging.disable(logging.CRITICAL)
+    # a process group the sharded solver starts here ends here
+    own_group = not dist.is_initialized()
 
     if not os.path.exists(args.config):
         print(f"error: cannot open config file {args.config!r}", file=sys.stderr)
@@ -69,7 +84,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     mesh = inp.template.run(inp.geometry)
-    print(f"blocking: {len(mesh.blocks)} blocks, {mesh.num_points} points "
+    say(f"blocking: {len(mesh.blocks)} blocks, {mesh.num_points} points "
           f"({time.perf_counter() - t0:.2f} s)")
     check_connections(mesh)
 
@@ -89,8 +104,12 @@ def main(argv=None) -> int:
             resume=args.resume,
             device=args.device,
         )
-        print(f"elapsed time for smoothing: {time.perf_counter() - t0:.2f} s")
+        say(f"elapsed time for smoothing: {time.perf_counter() - t0:.2f} s")
 
+    if own_group and dist.is_initialized():
+        dist.destroy_process_group()
+    if not lead:
+        return 0
     output = args.output or inp.output
     if output:
         mesh.write(output)

@@ -243,7 +243,7 @@ def build_plan(mesh, info: BoundaryInfo, transpose: bool = True) -> DevicePlan:
 
 
 #: DevicePlan array fields that become tensors
-PLAN_KEYS = ("scatter_idx", "interior_mask", "free_mask",
+PLAN_KEYS = ("interior_mask", "free_mask",
              "c_row", "c_g0m", "c_g0p", "c_in0", "c_in1",
              "c_d0m", "c_d0p", "c_d1m", "c_d1p", "c_pi", "c_swap_pq",
              "c_seg", "c_seg_valid",
@@ -342,7 +342,17 @@ INTERFACE_PASSES = 2
 
 class DeviceSmoother:
     """Device counterpart of SparseSystem.solve, plus the device-resident
-    Picard loop (run)."""
+    Picard loop (run).
+
+    The block-sharded smoother (parallel/shard.py) is a subclass: it
+    overrides the hooks that move data across blocks (``_remote_S``,
+    ``_remote_F``, ``_dot``, ``_norm``, ``_glued_levels``), the host
+    transfers and the control-function update, and runs every stage,
+    the preconditioner composition and the Picard loop written here."""
+
+    #: inexact Picard with a target residual (run); the sharded loop keeps
+    #: a fixed tolerance, as the JAX package's does
+    adaptive_forcing = True
 
     def __init__(self, mesh, info: BoundaryInfo, *, device,
                  rtol: float = 1e-13, atol: float = 1e-15,
@@ -358,6 +368,8 @@ class DeviceSmoother:
         self.restart = restart
         self.max_restarts = max_restarts
         p = self.plan
+        #: the (B, N, M) of the stack this instance holds
+        self._shape = (p.B, p.N, p.M)
         tens = plan_tensors(p, self.device)
         self._p64 = tens["p64"]
         self._p32 = tens["p32"]
@@ -370,6 +382,7 @@ class DeviceSmoother:
         self._glue_dev = prep_glue_arrays(glue, self.device)
         self.last_linear_residual = float("nan")
         self.last_linear_converged = False
+        self.last_restarts = 0
         self.last_run_rtols = []
 
     # -- residual / operator --------------------------------------------------
@@ -377,11 +390,38 @@ class DeviceSmoother:
     def _plan_for(self, dtype):
         return self._p32 if dtype == torch.float32 else self._p64
 
+    def _remote_S(self, Xf):
+        """The values slave rows read their masters from (stage S): the
+        field itself on one device, an exchange table when sharded."""
+        return Xf
+
+    def _remote_F(self, Vf):
+        """The values connection and junction rows read across blocks
+        (stage F): the field itself on one device, an exchange table when
+        sharded (``c_in1``, ``c_d1m``, ``c_d1p``, ``l_stencil`` index it)."""
+        return Vf
+
+    def _dot(self, x, y):
+        return torch.sum(x * y)
+
+    def _norm(self, x):
+        return torch.linalg.vector_norm(x)
+
     def _substitute(self, Xf, with_offsets: float):
         """Slave substitution x_slave = x_master + with_offsets * offset."""
         p = self._plan_for(Xf.dtype)
-        val = Xf[p["sl_master"]] + with_offsets * p["sl_off"]
+        val = self._remote_S(Xf)[p["sl_master"]] + with_offsets * p["sl_off"]
         return Xf.index_copy(0, p["sl_row"], val)
+
+    def _conn_metrics(self, baseF, baseV):
+        """(C, 3) [g11, g12, g22] of the connection rows at the frozen base
+        (baseV = ``_remote_F(baseF)``): the frozen coefficients see the
+        periodic shift."""
+        p = self._plan_for(baseF.dtype)
+        g11, g12, g22 = _metrics(
+            baseF[p["c_g0m"]], baseF[p["c_g0p"]], baseF[p["c_in0"]],
+            baseV[p["c_in1"]] - p["c_pi"])
+        return torch.stack([g11, g12, g22], dim=-1)
 
     def _apply(self, baseX, baseF, cf_pad, Vf, with_offsets: float,
                G=None, cG=None):
@@ -391,12 +431,17 @@ class DeviceSmoother:
         residuals over the free components. with_offsets 1.0 gives the
         affine map F(v), 0.0 the linear map A v. G/cG: optional
         precomputed interior/connection metric stacks (f64-differenced,
-        f32-stored — see _interior_apply)."""
+        f32-stored — see _interior_apply; cG as from _conn_metrics)."""
         p = self._plan_for(Vf.dtype)
-        B, N, M = self.plan.B, self.plan.N, self.plan.M
+        B, N, M = self._shape
         zero = _zero(Vf)
 
+        # every exchange happens here, before any branch on this rank's
+        # row counts, so all ranks post the same ones in the same order
+        if cG is None:
+            cG = self._conn_metrics(baseF, self._remote_F(baseF))
         Vf = self._substitute(Vf, with_offsets)
+        VV = self._remote_F(Vf)
         V = Vf.reshape(B, N, M, 2)
 
         # interior rows
@@ -409,12 +454,7 @@ class DeviceSmoother:
         if c_row.shape[0]:
             c_pi = p["c_pi"]
             pi = with_offsets * c_pi
-            if cG is not None:
-                g11, g12, g22 = cG[:, 0], cG[:, 1], cG[:, 2]
-            else:
-                g11, g12, g22 = _metrics(
-                    baseF[p["c_g0m"]], baseF[p["c_g0p"]], baseF[p["c_in0"]],
-                    baseF[p["c_in1"]] - c_pi)  # frozen coefs see the shift
+            g11, g12, g22 = cG[:, 0], cG[:, 1], cG[:, 2]
             cf_row = cf_pad.reshape(-1, 2)[c_row]
             c_swap = p["c_swap_pq"]
             P = torch.where(c_swap, cf_row[:, 1], cf_row[:, 0])
@@ -434,16 +474,16 @@ class DeviceSmoother:
                 c_ij * Vf[c_row]
                 + c_ip1 * Vf[p["c_g0p"]] + c_im1 * Vf[p["c_g0m"]]
                 + c_jm1 * Vf[p["c_in0"]]
-                + c_jp1 * (Vf[p["c_in1"]] - pi)
+                + c_jp1 * (VV[p["c_in1"]] - pi)
                 + c_mm * Vf[p["c_d0m"]] + c_pm * Vf[p["c_d0p"]]
-                + c_mp * (Vf[p["c_d1m"]] - pi) + c_pp * (Vf[p["c_d1p"]] - pi)
+                + c_mp * (VV[p["c_d1m"]] - pi) + c_pp * (VV[p["c_d1p"]] - pi)
             )
             Rf = Rf.index_copy(0, c_row, r)
 
         # junction rows
         l_row = p["l_row"]
         if l_row.shape[0]:
-            vals = Vf[p["l_stencil"]]  # (L, K, 2)
+            vals = VV[p["l_stencil"]]  # (L, K, 2)
             r = torch.sum(p["l_weight"][..., None] * vals, dim=1)
             r = r - with_offsets * p["l_rhs"]
             Rf = Rf.index_copy(0, l_row, r)
@@ -457,17 +497,16 @@ class DeviceSmoother:
 
         return torch.where(p["free_mask"].reshape(-1, 2), Rf, zero)
 
-    def _diag(self, baseX, baseF):
-        """Jacobi diagonal over free components (1 elsewhere)."""
-        p = self._plan_for(baseF.dtype)
+    def _diag(self, baseX, cG):
+        """Jacobi diagonal over free components (1 elsewhere); cG: the
+        connection rows' metrics (_conn_metrics)."""
+        p = self._plan_for(baseX.dtype)
         d0 = _interior_diag(baseX)[..., None]
         df = d0.expand(d0.shape[:-1] + (2,)).reshape(-1, 2)
 
         c_row = p["c_row"]
         if c_row.shape[0]:
-            g11, _, g22 = _metrics(
-                baseF[p["c_g0m"]], baseF[p["c_g0p"]], baseF[p["c_in0"]],
-                baseF[p["c_in1"]] - p["c_pi"])
+            g11, g22 = cG[:, 0], cG[:, 2]
             dc = (-2.0 * g22 - 2.0 * g11)[:, None]
             df = df.index_copy(0, c_row, dc.expand(dc.shape[0], 2))
 
@@ -490,47 +529,48 @@ class DeviceSmoother:
 
     def _stage_base(self, Xpad, cf_pad):
         """Frozen base (slave-substituted, flat) and the rhs b = -F(base)."""
-        B, N, M = self.plan.B, self.plan.N, self.plan.M
+        B, N, M = self._shape
         baseF = self._substitute(Xpad.reshape(-1, 2), 1.0)
         b = -self._apply(baseF.reshape(B, N, M, 2), baseF, cf_pad, baseF, 1.0)
         return baseF, b
 
-    def _stage_apply64(self, baseF, cf_pad, v):
-        """f64 linear operator A v."""
-        B, N, M = self.plan.B, self.plan.N, self.plan.M
-        return self._apply(baseF.reshape(B, N, M, 2), baseF, cf_pad, v, 0.0)
+    def _stage_apply64(self, baseF, cf_pad, v, cG=None):
+        """f64 linear operator A v (cG: the f64 connection metrics,
+        ``ctx["cG64"]``, formed here when not given)."""
+        B, N, M = self._shape
+        return self._apply(baseF.reshape(B, N, M, 2), baseF, cf_pad, v, 0.0,
+                           cG=cG)
 
     def _stage_finish(self, baseF, delta):
         free64 = self._p64["free_mask"].reshape(-1, 2)
         Xf1 = baseF + torch.where(free64, delta, _zero(delta))
         return self._substitute(Xf1, 1.0)
 
+    def _glued_levels(self, baseX32, cf32):
+        """(glued multigrid levels, per-level glue callables or None)."""
+        from .multigrid import build_glued_levels
+
+        return build_glued_levels(baseX32, cf32, self._glue_dev), None
+
     def _stage_prepare32(self, baseF, cf_pad):
         """f32 inner-solver context: diagonal, chain factors, glued
         multigrid levels and the f64-differenced operator metrics."""
-        from .multigrid import build_glued_levels
-
-        p32, p64 = self._p32, self._p64
-        B, N, M = self.plan.B, self.plan.N, self.plan.M
+        p32 = self._p32
+        B, N, M = self._shape
+        baseV = self._remote_F(baseF)
         baseF32 = baseF.to(torch.float32)
         baseX32 = baseF32.reshape(B, N, M, 2)
         cf32 = cf_pad.to(torch.float32)
-        diag_field = self._diag(baseX32, baseF32).reshape(B, N, M, 2)
+        cg32 = self._conn_metrics(baseF32, baseV.to(torch.float32))
+        diag_field = self._diag(baseX32, cg32).reshape(B, N, M, 2)
 
-        c_row = p32["c_row"]
-        if c_row.shape[0]:
-            cg11, _, cg22 = _metrics(
-                baseF32[p32["c_g0m"]], baseF32[p32["c_g0p"]],
-                baseF32[p32["c_in0"]], baseF32[p32["c_in1"]] - p32["c_pi"])
-            cf_row = cf32.reshape(-1, 2)[c_row]
-            Pq = torch.where(p32["c_swap_pq"], cf_row[:, 1], cf_row[:, 0])
-            ch = (cg22 * (1 - 0.5 * Pq), -2.0 * cg22 - 2.0 * cg11,
-                  cg22 * (1 + 0.5 * Pq))
-        else:
-            z = torch.zeros((0,), dtype=torch.float32, device=baseF.device)
-            ch = (z, z, z)
+        cg11, cg22 = cg32[:, 0], cg32[:, 2]
+        cf_row = cf32.reshape(-1, 2)[p32["c_row"]]
+        Pq = torch.where(p32["c_swap_pq"], cf_row[:, 1], cf_row[:, 0])
+        ch = (cg22 * (1 - 0.5 * Pq), -2.0 * cg22 - 2.0 * cg11,
+              cg22 * (1 + 0.5 * Pq))
 
-        levels = build_glued_levels(baseX32, cf32, self._glue_dev)
+        levels, glue_fns = self._glued_levels(baseX32, cf32)
 
         # f64-differenced, f32-stored operator metrics: the f32 inner
         # operator's coefficients are formed by differencing the f64 frozen
@@ -542,20 +582,15 @@ class DeviceSmoother:
             baseX64[:, :-2, 1:-1], baseX64[:, 2:, 1:-1],
             baseX64[:, 1:-1, :-2], baseX64[:, 1:-1, 2:])
         G = torch.stack([g11, g12, g22], dim=-1).to(torch.float32)
-        if p64["c_row"].shape[0]:
-            cg11, cg12, cg22 = _metrics(
-                baseF[p64["c_g0m"]], baseF[p64["c_g0p"]], baseF[p64["c_in0"]],
-                baseF[p64["c_in1"]] - p64["c_pi"])
-            cGm = torch.stack([cg11, cg12, cg22], dim=-1).to(torch.float32)
-        else:
-            cGm = torch.zeros((0, 3), dtype=torch.float32, device=baseF.device)
+        cG64 = self._conn_metrics(baseF, baseV)
 
         return dict(baseF32=baseF32, cf32=cf32, diag=diag_field, chain=ch,
-                    G=G, cG=cGm, mg=levels)
+                    G=G, cG=cG64.to(torch.float32), cG64=cG64, mg=levels,
+                    glue_fns=glue_fns)
 
     def _stage_A32(self, ctx, v):
         """f32 linear operator application."""
-        B, N, M = self.plan.B, self.plan.N, self.plan.M
+        B, N, M = self._shape
         baseF32 = ctx["baseF32"]
         return self._apply(baseF32.reshape(B, N, M, 2), baseF32, ctx["cf32"],
                            v, 0.0, G=ctx["G"], cG=ctx["cG"])
@@ -566,12 +601,13 @@ class DeviceSmoother:
         every level)."""
         from .multigrid import v_cycle_glued
 
-        B, N, M = self.plan.B, self.plan.N, self.plan.M
+        B, N, M = self._shape
         levels = ctx["mg"]
         mask = levels[0]["interior"][..., None]  # interior + SMOOTHED faces
         v = vflat.reshape(B, N, M, 2)
         zero = _zero(vflat)
-        z = v_cycle_glued(levels, torch.where(mask, v, zero))
+        z = v_cycle_glued(levels, torch.where(mask, v, zero),
+                          glue_fns=ctx["glue_fns"])
         z = torch.where(mask & self._p32["free_mask"], z, zero)
         return z.reshape(-1, 2)
 
@@ -585,7 +621,7 @@ class DeviceSmoother:
         from .krylov import thomas
 
         p32 = self._p32
-        B, N, M = self.plan.B, self.plan.N, self.plan.M
+        B, N, M = self._shape
         diag_field = ctx["diag"]
         zero = _zero(vflat)
         one = torch.ones((), dtype=vflat.dtype, device=vflat.device)
@@ -657,7 +693,8 @@ class DeviceSmoother:
         """One linearized solve: exact-f64 FGMRES over the equilibrated
         system, preconditioned by one f32 _stage_Minv application per
         iteration. Returns (X1, stats) with stats = [plain residual,
-        converged flag, displacement residual] as a device tensor."""
+        converged flag, displacement residual] as a device tensor; the
+        FGMRES restart cycles it took go to ``last_restarts``."""
         from .krylov import restarted_fgmres
 
         base, b = self._stage_base(Xpad, cf_pad)
@@ -672,31 +709,30 @@ class DeviceSmoother:
         inv_row = 1.0 / row_diag
 
         def A_s(v):
-            return inv_row * self._stage_apply64(base, cf_pad, v)
+            return inv_row * self._stage_apply64(base, cf_pad, v,
+                                                 cG=ctx["cG64"])
 
         def M_s(v):
             v32 = (row_diag * v).to(torch.float32)
             return self._stage_Minv(ctx, v32).to(torch.float64)
 
-        def dot(x, y):
-            return torch.sum(x * y)
-
         b_s = inv_row * b
-        tol2 = torch.clamp(rtol * torch.linalg.vector_norm(b), min=self.atol)
-        d_s, rn_s = restarted_fgmres(
-            A_s, b_s, M_s, dot=dot, rtol=rtol, atol=self.atol,
+        tol2 = torch.clamp(rtol * self._norm(b), min=self.atol)
+        d_s, rn_s, self.last_restarts = restarted_fgmres(
+            A_s, b_s, M_s, dot=self._dot, rtol=rtol, atol=self.atol,
             restart=self.restart, max_restarts=self.max_restarts,
-            w2=row_diag, tol2=tol2)
+            w2=row_diag, tol2=tol2, return_restarts=True)
         delta = torch.where(free64, d_s, _zero(d_s))
         # true unequilibrated residual for the convergence report
-        rnorm = torch.linalg.vector_norm(
-            b - self._stage_apply64(base, cf_pad, delta))
-        tol_s = torch.clamp(rtol * torch.linalg.vector_norm(b_s), min=self.atol)
+        rnorm = self._norm(
+            b - self._stage_apply64(base, cf_pad, delta, cG=ctx["cG64"]))
+        tol_s = torch.clamp(rtol * self._norm(b_s), min=self.atol)
         converged = torch.logical_or(rn_s <= tol_s, rnorm <= tol2)
         X1 = self._stage_finish(base, delta).reshape(Xpad.shape)
         # displacement-norm Picard residual (smooth.zig:136 formula):
         # (sum dx^2 + sum dy^2)^2 — padded lanes are zero in both fields
-        d2 = torch.sum((X1 - Xpad) ** 2)
+        dX = X1 - Xpad
+        d2 = self._dot(dX, dX)
         stats = torch.stack([rnorm, converged.to(torch.float64), d2 * d2])
         return X1, stats
 
@@ -707,6 +743,18 @@ class DeviceSmoother:
         C = torch.as_tensor(p.pad_cf(cf).reshape(p.B, p.N, p.M, 2),
                             dtype=torch.float64, device=self.device)
         return X, C
+
+    def _coords_to_host(self, X) -> np.ndarray:
+        return self.plan.unpad_coords(X.cpu().numpy())
+
+    def _cf_to_host(self, C) -> np.ndarray:
+        return self.plan.unpad_cf(C.cpu().numpy())
+
+    def _device_update(self, algorithm):
+        """The control-function update ``C = upd(X, C)`` on the stack."""
+        from .control_function import make_device_update
+
+        return make_device_update(algorithm, self._mesh, self.plan)
 
     def solve(self, coords: np.ndarray, cf: np.ndarray) -> np.ndarray:
         """One linearized Picard solve: upload the padded field, run the
@@ -722,12 +770,13 @@ class DeviceSmoother:
                                self.atol)
         self.last_linear_residual = rn
         self.last_linear_converged = bool(ok)
-        return self.plan.unpad_coords(X1.cpu().numpy())
+        return self._coords_to_host(X1)
 
     def run(self, coords: np.ndarray, cf: np.ndarray, iterations: int,
             algorithm=None, start_iteration: int = 0,
             target_residual: float | None = None,
             residual_history: list | None = None,
+            restart_history: list | None = None,
             checkpoint_cb=None, checkpoint_every: int = 10):
         """Device-resident outer Picard loop (the reference's iteration
         loop, smooth.zig:104-153).
@@ -740,15 +789,14 @@ class DeviceSmoother:
         The full field comes back only at checkpoints and at the end.
 
         algorithm: control-function object (Laplace/White) whose update
-        runs on the device; None skips updates. checkpoint_cb(coords, cf,
+        runs on the device; None skips updates. restart_history: gets the
+        FGMRES restart cycles of each iteration. checkpoint_cb(coords, cf,
         n): called with host arrays every checkpoint_every iterations.
         Returns (coords, cf, last_displacement_residual, iterations_run).
         """
-        from .control_function import make_device_update
         from .krylov import _warn_nonconverged
 
-        p = self.plan
-        upd = (make_device_update(algorithm, self._mesh, p)
+        upd = (self._device_update(algorithm)
                if algorithm is not None else None)
 
         # Inexact Picard (adaptive forcing term): with a TARGET residual the
@@ -757,8 +805,9 @@ class DeviceSmoother:
         # within ~1e6x of the target (the 4th-power displacement metric)
         # they run at the full instance rtol. Fixed-iteration runs (the
         # reference's own semantics, smooth.zig:104) keep the fixed
-        # tolerance.
-        adaptive = target_residual is not None
+        # tolerance, and so does every run of a class without
+        # ``adaptive_forcing``.
+        adaptive = self.adaptive_forcing and target_residual is not None
         eta_loose = max(self.rtol, 1e-2)
         #: per-iteration linear-solve tolerances of the last run()
         self.last_run_rtols = []
@@ -766,8 +815,7 @@ class DeviceSmoother:
         X, C = self._upload(coords, cf)
 
         def to_host(Xdev, Cdev):
-            return (p.unpad_coords(Xdev.cpu().numpy()),
-                    p.unpad_cf(Cdev.cpu().numpy()))
+            return self._coords_to_host(Xdev), self._cf_to_host(Cdev)
 
         disp = np.inf
         n_done = start_iteration
@@ -790,6 +838,8 @@ class DeviceSmoother:
             log.info("\tresidual: %.6e", disp)
             if residual_history is not None:
                 residual_history.append(disp)
+            if restart_history is not None:
+                restart_history.append(self.last_restarts)
             n_done = n + 1
             if target_residual is not None and disp < target_residual:
                 log.info("converged: residual %.3e < target %.3e at "

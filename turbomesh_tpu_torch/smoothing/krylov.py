@@ -62,7 +62,7 @@ def fgmres_one_cycle(A, b, M_inv, dot, m, x):
 
 
 def restarted_fgmres(A, b, M_inv, dot, rtol, atol, restart, max_restarts,
-                     w2=None, tol2=None):
+                     w2=None, tol2=None, return_restarts=False):
     """Flexible restarted GMRES (FGMRES, Saad 1993): stores the
     preconditioned directions Z_k = M_inv(V_k) and forms the update from
     Z, so M_inv may vary between applications — required when the
@@ -75,7 +75,8 @@ def restarted_fgmres(A, b, M_inv, dot, rtol, atol, restart, max_restarts,
 
     ``rtol``/``atol``/``tol2`` may be floats or device scalars. The stop
     test reads one boolean per restart cycle on the host. Returns
-    (x, primary_residual_norm) with the norm as a device scalar.
+    (x, primary_residual_norm) with the norm as a device scalar, and with
+    ``return_restarts`` also the restart cycles run (an int).
     """
     bnorm = torch.sqrt(dot(b, b))
     tol = torch.clamp(rtol * bnorm, min=atol)
@@ -91,6 +92,8 @@ def restarted_fgmres(A, b, M_inv, dot, rtol, atol, restart, max_restarts,
             live = torch.logical_and(live, rn2 > tol2)
         if not bool(live):
             break
+    if return_restarts:
+        return x, rn, i
     return x, rn
 
 

@@ -91,16 +91,29 @@ def _pad1(a, value=0.0):
     return F.pad(a, (1, 1, 1, 1), value=value)
 
 
-def build_glued_levels(base, cf, glue_levels):
+def build_glued_levels(base, cf, glue_levels, glue_fns=None, masks=None,
+                       maps=None):
     """Build the glued hierarchy. base/cf: (B, N, M, 2) padded stacks
     (finest); glue_levels: prep_glue_arrays output. Level fields are
     ghost-augmented where needed; stencil coefficients use the GLUED base
     so face-row equations couple across blocks. Each level also carries
-    the ghost-framed zebra planes its smoother sweeps over."""
+    the ghost-framed zebra planes its smoother sweeps over.
+
+    The block-sharded path gives its own per-level pieces, and then
+    ``glue_levels`` is read only for its length:
+    glue_fns: per-level callables ``fn(v, coord_field) -> ghost-augmented
+    v`` in place of the glue map (local gathers plus one cross-rank
+    exchange); they glue coordinates, residuals and corrections alike.
+    masks: per-level smooth masks; maps: per-level transfer maps (None or
+    a dict of MAP_KEYS) — this rank's slices."""
     dt = base.dtype
     levels = []
     for lvl, gl in enumerate(glue_levels):
-        mp = {k: gl[k] for k in MAP_KEYS} if "li_map" in gl else None
+        if maps is not None:
+            mp = maps[lvl]
+        else:
+            mp = {k: gl[k] for k in MAP_KEYS} if "li_map" in gl else None
+        glue_fn = None if glue_fns is None else glue_fns[lvl]
         if lvl > 0:
             if mp is not None:
                 base = _subsample_mapped(base, mp["li_map"], mp["lj_map"])
@@ -108,9 +121,12 @@ def build_glued_levels(base, cf, glue_levels):
             else:
                 base = base[:, ::2, ::2, :]
                 cf = cf[:, ::2, ::2, :]
-        mask = gl["smooth_mask"]
-        baseg = _glue_pad(base, gl["gsrc"], gl["gdst"], gl["goff"].to(dt),
-                          True)
+        mask = gl["smooth_mask"] if masks is None else masks[lvl]
+        if glue_fn is None:
+            baseg = _glue_pad(base, gl["gsrc"], gl["gdst"],
+                              gl["goff"].to(dt), True)
+        else:
+            baseg = glue_fn(base, True)
         # glued metrics over the whole block region (faces included)
         x_xi = 0.5 * (baseg[:, 2:, 1:-1] - baseg[:, :-2, 1:-1])
         x_eta = 0.5 * (baseg[:, 1:-1, 2:] - baseg[:, 1:-1, :-2])
@@ -167,10 +183,12 @@ def build_glued_levels(base, cf, glue_levels):
         )
 
         rec = dict(baseg=baseg, cf=cf, interior=mask, stencil=stencil,
-                   zebra=zebra,
-                   gsrc=gl["gsrc"], gdst=gl["gdst"],
-                   gcsrc=gl["gcsrc"], gcdst=gl["gcdst"], gcw=gl["gcw"].to(dt),
-                   gjdst=gl["gjdst"], gjsrc=gl["gjsrc"], gjw=gl["gjw"].to(dt))
+                   zebra=zebra)
+        if glue_fn is None:
+            rec.update(gsrc=gl["gsrc"], gdst=gl["gdst"],
+                       gcsrc=gl["gcsrc"], gcdst=gl["gcdst"],
+                       gcw=gl["gcw"].to(dt), gjdst=gl["gjdst"],
+                       gjsrc=gl["gjsrc"], gjw=gl["gjw"].to(dt))
         if mp is not None:
             # transfer maps for the boundary-aligned (non-stride-2) levels,
             # relative to the PARENT level
@@ -192,14 +210,17 @@ def _glue_pad(v, src, dst, off, coord_field=False):
     return vf.reshape(shape)
 
 
-def _glue_correction(level, v):
+def _glue_correction(level, v, glue_fn=None):
     """Glue a CORRECTION field: ghost halos + slave copies, plus the
     correction-only embeddings (glue.py GlueLevel.c*/j*): junction
     masters take the mean of their members' interior-neighbor
     corrections, and sliding points copy the y-correction of their
     level-local first interior neighbor (x forced to 0). One gather and
     one scatter over a map with unique destinations; values read the
-    pre-scatter field. Never apply to coordinate or residual fields."""
+    pre-scatter field. Never apply to coordinate or residual fields.
+    With ``glue_fn`` (the sharded path) that callable glues instead."""
+    if glue_fn is not None:
+        return glue_fn(v, False)
     vg = F.pad(v, (0, 0, 1, 1, 1, 1))
     shape = vg.shape
     vf = vg.reshape(-1, v.shape[-1])
@@ -213,10 +234,10 @@ def _glue_correction(level, v):
     return vf.reshape(shape)
 
 
-def _apply_glued(level, v):
+def _apply_glued(level, v, glue_fn=None):
     """Winslow stencil over the glued field; rows = smooth mask
     (interior + SMOOTHED connection faces). v is a correction field."""
-    vg = _glue_correction(level, v)
+    vg = _glue_correction(level, v, glue_fn)
     s = level["stencil"]
     out = (
         s["c_ij"] * vg[:, 1:-1, 1:-1]
@@ -233,7 +254,7 @@ def _apply_glued(level, v):
                        torch.zeros((), dtype=out.dtype, device=out.device))
 
 
-def _smooth_glued(level, r, z):
+def _smooth_glued(level, r, z, glue_fn=None):
     """Zebra line relaxation over the glued mesh: for each direction (lines
     along i colored by j parity, then lines along j colored by i parity)
     and each color, glue the correction, then one zebra half-sweep
@@ -246,7 +267,7 @@ def _smooth_glued(level, r, z):
     mask = level["interior"][..., None]
     zero = torch.zeros((), dtype=r.dtype, device=r.device)
     for (dl, d, du), axis, sel in passes:
-        zg = _glue_correction(level, z)
+        zg = _glue_correction(level, z, glue_fn)
         zx, zy = zebra_half_sweep(
             zb["bx"], zb["by"], zb["cfp"], zb["cfq"], dl, d, du, zb["msk"],
             sel, rx, ry, zg[..., 0].contiguous(), zg[..., 1].contiguous(),
@@ -306,13 +327,16 @@ def _prolong_mapped(zc, fine_shape, plo_i, pw_i, plo_j, pw_j):
     return z2
 
 
-def _restrict_glued(level, r, coarse):
+def _restrict_glued(level, r, coarse, glue_fn=None):
     """Full-weighting restriction using glued residual ghosts, so the
     stencil at a face point weights the partner block's residuals. When
     the coarse level carries boundary-aligned lattice maps the 3x3 stencil
     gathers at the mapped parent ordinals instead of stride-2 slicing."""
     B, Nc, Mc = coarse["interior"].shape
-    rp = _glue_pad(r, level["gsrc"], level["gdst"], None, False)
+    if glue_fn is None:
+        rp = _glue_pad(r, level["gsrc"], level["gdst"], None, False)
+    else:
+        rp = glue_fn(r, False)
     im = coarse.get("li_map")
 
     if im is None:
@@ -331,11 +355,13 @@ def _restrict_glued(level, r, coarse):
             + (at(1, 1) + at(1, -1) + at(-1, 1) + at(-1, -1))) / 16.0
 
 
-def v_cycle_glued(levels, r, level_idx=0):
+def v_cycle_glued(levels, r, level_idx=0, glue_fns=None):
     """Glued multigrid V-cycle (recursion over the level list): PRE_SMOOTH
     and POST_SMOOTH alternating-direction smooths per level, COARSE_ITERS
-    on the coarsest."""
+    on the coarsest. glue_fns: per-level glue callables of the sharded
+    path (build_glued_levels), None for the levels' own glue maps."""
     level = levels[level_idx]
+    gfn = None if glue_fns is None else glue_fns[level_idx]
     mask = level["interior"][..., None]
     zero = torch.zeros((), dtype=r.dtype, device=r.device)
     r = torch.where(mask, r, zero)
@@ -343,17 +369,17 @@ def v_cycle_glued(levels, r, level_idx=0):
 
     if level_idx == len(levels) - 1:
         for _ in range(COARSE_ITERS):
-            z = _smooth_glued(level, r, z)
+            z = _smooth_glued(level, r, z, gfn)
         return z
 
     for _ in range(PRE_SMOOTH):
-        z = _smooth_glued(level, r, z)
+        z = _smooth_glued(level, r, z, gfn)
 
-    res = torch.where(mask, r - _apply_glued(level, z), zero)
+    res = torch.where(mask, r - _apply_glued(level, z, gfn), zero)
     coarse = levels[level_idx + 1]
     # undivided stencils scale as h^4, so A_c ~ 16 A_f on smooth modes
-    rc = 16.0 * _restrict_glued(level, res, coarse)
-    zc = v_cycle_glued(levels, rc, level_idx + 1)
+    rc = 16.0 * _restrict_glued(level, res, coarse, gfn)
+    zc = v_cycle_glued(levels, rc, level_idx + 1, glue_fns)
     if coarse.get("pi_lo") is not None:
         zf = _prolong_mapped(zc, tuple(level["interior"].shape),
                              coarse["pi_lo"], coarse["pi_w"],
@@ -363,5 +389,5 @@ def v_cycle_glued(levels, r, level_idx=0):
     z = z + torch.where(mask, zf, zero)
 
     for _ in range(POST_SMOOTH):
-        z = _smooth_glued(level, r, z)
+        z = _smooth_glued(level, r, z, gfn)
     return z

@@ -8,10 +8,11 @@ y-system), log the displacement-norm residual, copy the solution back.
 Solver selection mirrors the reference's user-facing options
 (solver.zig:10-38): "gmres" and "bicgstab" select the host Krylov
 implementations (with the "preconditioner" sub-option: diagonal | ilu0),
-"umfpack"/"petsc"/"direct" the sparse direct factorization, and
-"device" the matrix-free torch path on ``device``. All converge the same
-linear systems to tight tolerance, so Picard fixed points agree to solver
-tolerance.
+"umfpack"/"petsc"/"direct" the sparse direct factorization,
+"device" the matrix-free torch path on ``device``, and "sharded" that
+path with the blocks cut across the ranks of a ``torch.distributed``
+group (parallel.ShardedSmoother). All converge the same linear systems to
+tight tolerance, so Picard fixed points agree to solver tolerance.
 """
 
 from __future__ import annotations
@@ -53,7 +54,26 @@ def _solver_name(option) -> tuple[str, str]:
         return option, precond
     if option in ("device", "jacobi_cg", "sor"):
         return "device", precond
+    if option == "sharded":
+        return "sharded", precond
     raise ValueError(f"unknown solver option {option!r}")
+
+
+def _auto_shard(backend: str) -> str:
+    """A "device" request runs block-sharded (parallel.ShardedSmoother)
+    when the process group, or torchrun's world before the group exists,
+    has more than one rank; TURBOMESH_SHARDED=0 opts out, =1 forces the
+    sharded path whatever the world size."""
+    import os
+
+    from ..parallel import dist as pdist
+
+    gate = os.environ.get("TURBOMESH_SHARDED", "auto")
+    if backend != "device" or gate == "0":
+        return backend
+    if gate == "1" or pdist.world_size() > 1:
+        return "sharded"
+    return backend
 
 
 def smooth_mesh(mesh, iterations: int, solver="direct",
@@ -71,8 +91,12 @@ def smooth_mesh(mesh, iterations: int, solver="direct",
     restores from checkpoint_path and continues from the saved iteration.
     target_residual: stop early once the displacement-norm residual drops
     below this value (run-to-convergence mode; `iterations` is the cap).
-    device: torch device of the "device" backend (ignored by the host
-    backends).
+    device: torch device of the "device" and "sharded" backends (ignored
+    by the host backends); under "sharded", "cuda" is rank r's card
+    ``cuda:{local_rank % device_count}`` and a missing process group is
+    initialised (torchrun's environment, else a world of 1). Every rank
+    of the group calls this on the same mesh; only rank 0 writes the
+    checkpoint.
     """
     from ..profiling import PhaseTimer
 
@@ -86,8 +110,16 @@ def smooth_mesh(mesh, iterations: int, solver="direct",
     algorithm = cf_from_config(wall_control_function)
     backend, precond = _solver_name(solver)
 
+    backend = _auto_shard(backend)
+    writer = True
     with timer.phase("solver_setup"):
-        if backend == "device":
+        if backend == "sharded":
+            from ..parallel import ShardedSmoother
+
+            smoother = ShardedSmoother(mesh, info, rtol=1e-4, atol=1e-11,
+                                       device=device)
+            writer = smoother.rank == 0
+        elif backend == "device":
             from .device import DeviceSmoother
 
             # inexact Picard: 1e-4 relative reduction per linearized solve
@@ -111,17 +143,19 @@ def smooth_mesh(mesh, iterations: int, solver="direct",
 
     coords = mesh.flat_coords()
 
-    if backend == "device":
+    if backend in ("device", "sharded"):
         # device-resident Picard loop: the field stays on the device
-        # across iterations (the White update runs there too); only the
-        # per-iteration stats vector comes back. The reference's outer
-        # loop (smooth.zig:104-153) with device data residency.
+        # (sharded: cut across the ranks) across iterations (the White
+        # update runs there too); only the per-iteration stats vector
+        # comes back. The reference's outer loop (smooth.zig:104-153)
+        # with device data residency.
         def checkpoint_cb(c, f, n_done):
             from ..checkpoint import save_checkpoint
 
             mesh.set_flat_coords(c)
-            with timer.phase("checkpoint"):
-                save_checkpoint(checkpoint_path, mesh, n_done, f)
+            if writer:
+                with timer.phase("checkpoint"):
+                    save_checkpoint(checkpoint_path, mesh, n_done, f)
 
         with timer.phase("picard_loop"):
             coords, cf, disp, n_done = smoother.run(
@@ -133,8 +167,8 @@ def smooth_mesh(mesh, iterations: int, solver="direct",
                                else None),
                 checkpoint_every=checkpoint_every)
         mesh.set_flat_coords(coords)
-        if checkpoint_path is not None and target_residual is not None \
-                and disp < target_residual:
+        if writer and checkpoint_path is not None \
+                and target_residual is not None and disp < target_residual:
             from ..checkpoint import save_checkpoint
 
             save_checkpoint(checkpoint_path, mesh, n_done, cf)
