@@ -62,6 +62,28 @@ Phases (each prints its result and wall time on its own line):
      world of 2; the mid cut reaches 1e-10, from_cuts holds 3 x 25,118
      points, and the CGNS-3D read-back is bit-identical where h5py is
      installed (else the stacked Mesh3d is checked in memory).
+ 10. the last modules: (a) coarse-space deflation, T106, DeviceSmoother
+     with deflation off, "y", "xy" and "j", 3 linearized solves at rtol
+     DEFL_RTOL with the White control function updated on the host from
+     the undeflated solve between them (tests/test_device_solver.py::
+     test_deflation_optin_parity): every solve converged, max |delta| to
+     the undeflated one < 1e-9; K, restarts, zebra launches (set to 0
+     just before each mode and read just after; each mode must launch)
+     and the time of one Galerkin build; then scale 4 with "y" to 1e-10
+     as phase 6 runs it, beside phase 6; (b) ShardedSmoother, NCCL world
+     1, deflation "y", one T106 Laplace solve against the host oracle
+     (1e-9); (c) is phase 8's restart and iteration counts, printed there
+     beside those of the sharded glue without the correction embeddings
+     (EARLIER_SHARDED_*); (d) profiling.torch_trace around one T106 Picard
+     iteration: the trace must be written; the CUDA kernels in it and the
+     device-busy share (kernel time over the iteration's wall, under the
+     profiler) are printed; (e) the browser service, web.serve(port=0,
+     device="cuda"): POST /run of the T106 config with 0 iterations, then
+     with 2 device iterations; the block points equal a direct run of the
+     port's pipeline, bit for bit at 0 iterations and to 1e-12 after
+     smoothing; (f) tfi.blended_tfi and linear_tfi on the card in f64 at
+     the largest T106 block's size against the same calls on the CPU
+     (1e-14).
 
 Times: a call's time is a run of back-to-back calls between two CUDA
 events over the count, median of several runs (cuda_time_ms); the window
@@ -139,6 +161,23 @@ SHARDED_RTOL, SHARDED_ATOL = 1e-13, 1e-15
 SHARDED_RUN_TOL = 1e-6
 SHARDED_HIST_RTOL = 1e-5
 SHARDED_WORLD = 4
+# the sharded runs' counts before the sharded correction glue carried the
+# sliding and junction embeddings (PERF.md §6, same card type and power
+# limit): 8(b)'s FGMRES(30) restart cycles per White iteration, 8(a)'s
+# Picard iterations
+EARLIER_SHARDED_RESTARTS = [4, 3, 3]
+EARLIER_SHARDED_SCALE4_ITERS = 17
+# phase 10 (a): deflated vs undeflated linearized solves (tests/
+# test_device_solver.py::test_deflation_optin_parity: 1e-9 over 3 White
+# iterations), FGMRES(30) as 8(b)'s device run
+DEFL_MODES = ("y", "xy", "j")
+DEFL_RTOL, DEFL_ATOL = 1e-13, 1e-15
+DEFL_TOL = 1e-9
+DEFL_SOLVES = 3
+# phase 10 (b), (e), (f)
+SHARDED_DEFL_TOL = 1e-9
+SERVICE_TOL = 1e-12
+TFI_TOL = 1e-14
 
 # Bounds: H100 SXM peaks from NVIDIA's data sheet (700 W): device memory
 # 3.35 TB/s; outside the tensor cores 67 TFLOP/s in f32, 34 in f64.
@@ -403,6 +442,7 @@ class Smoke:
         self.failed = []
         self._meshes = {}
         self._scale4 = None   # phase 6's scale-4 coordinates
+        self._p6 = None       # phase 6's iterations, wall, peak MiB
         # zebra: one kernel for the four TPU decompositions of the
         # half-sweep (the default split pair, the fused PCR and the Thomas
         # variant)
@@ -859,6 +899,7 @@ class Smoke:
             raise AssertionError(f"residual {disp:.3e} not below {TARGET} "
                                  f"after {iters} Picard iterations")
         self._scale4 = coords
+        self._p6 = dict(iters=iters, seconds=dt, peak_mib=peak / 2**20)
         p = dev.plan
         return (f"scale 4: {n} points (padded {p.B}x{p.N}x{p.M}), "
                 f"{iters} Picard iterations to residual {disp:.3e} in "
@@ -985,8 +1026,11 @@ class Smoke:
         delta = ("phase 6 not run" if self._scale4 is None else
                  f"max |delta| vs phase 6's DeviceSmoother "
                  f"{np.abs(r['coords'] - self._scale4).max():.3e}")
-        line = (f"{name}: {s4.num_points} points, residual {r['disp']:.3e}; "
-                f"{delta}; " + self._ranks(recs, name))
+        line = (f"{name}: {s4.num_points} points, {r['n_done']} Picard "
+                f"iterations (without the correction embeddings: "
+                f"{EARLIER_SHARDED_SCALE4_ITERS}; phase 6: "
+                f"{self._p6['iters'] if self._p6 else 'not run'}), residual "
+                f"{r['disp']:.3e}; {delta}; " + self._ranks(recs, name))
         print("  " + line, flush=True)
         return line
 
@@ -1070,8 +1114,11 @@ class Smoke:
             f"(b) gloo world {SHARDED_WORLD} on cuda:0 (time-sliced: a "
             f"correctness run), {wall:.2f} s with start-up: T106 "
             f"{SHARDED_WHITE_ITERS} White iterations at rtol {SHARDED_RTOL}, "
+            f"restarts {runs[0]['restart_history']} (the card's "
+            f"DeviceSmoother.run {dev_restarts}; without the correction "
+            f"embeddings {EARLIER_SHARDED_RESTARTS}), "
             f"max |delta| vs the card's DeviceSmoother.run (run meanwhile, "
-            f"{t_dev:.2f} s, restarts {dev_restarts}) "
+            f"{t_dev:.2f} s) "
             f"coords {e_x:.3e}, cf {e_cf:.3e} (bar {SHARDED_RUN_TOL}), "
             f"residual histories rel {e_h:.3e} (bar "
             f"{SHARDED_HIST_RTOL}); "
@@ -1118,10 +1165,285 @@ class Smoke:
                     f"rank {c['zebra_launches_per_rank']}" for c in cuts)
                 + f"; 3-D: {m3}")
 
+    # -- the last modules ------------------------------------------------------
+
+    def p10_last_modules(self):
+        from turbomesh_tpu_torch import input as input_mod
+
+        inp = input_mod.load(str(T106), base_dir=str(T106.parent))
+        bad, lines = [], []
+        for part in (self.p10a_deflation, self.p10b_sharded_deflation,
+                     self.p10d_trace, self.p10e_service, self.p10f_tfi):
+            t0 = time.perf_counter()
+            line = f"{part(inp, bad)} ({time.perf_counter() - t0:.2f} s)"
+            print("  " + line, flush=True)
+            lines.append(line)
+        if bad:
+            raise AssertionError("; ".join(bad))
+        return "; ".join(lines)
+
+    def p10a_deflation(self, inp, bad):
+        import numpy as np
+
+        torch = self.torch
+        from turbomesh_tpu_torch.ops import zebra
+        from turbomesh_tpu_torch.smoothing.classify import classify
+        from turbomesh_tpu_torch.smoothing.control_function import (
+            Laplace, from_config)
+        from turbomesh_tpu_torch.smoothing.device import DeviceSmoother
+
+        # a mesh of its own: the White update moves its coordinates
+        mesh = inp.template.run(inp.geometry)
+        info = classify(mesh)
+        white = from_config(inp.smoothing.wall_control_function)
+        start = mesh.flat_coords()
+        tol = dict(rtol=DEFL_RTOL, atol=DEFL_ATOL, restart=30,
+                   max_restarts=100)
+        modes = (None,) + DEFL_MODES
+        sms = {m: DeviceSmoother(mesh, info, device="cuda", deflation=m,
+                                 **tol) for m in modes}
+        cf = white.init(mesh)
+        coords = {m: start for m in modes}
+        stats = {m: dict(restarts=[], launches=0, seconds=0.0)
+                 for m in modes}
+        for n in range(DEFL_SOLVES):
+            if n > 0:
+                mesh.set_flat_coords(coords[None])
+                white.update(cf, mesh)
+            for m in modes:
+                torch.cuda.synchronize()
+                zebra.ZEBRA_LAUNCHES = 0
+                t0 = time.perf_counter()
+                coords[m] = sms[m].solve(coords[m], cf)
+                torch.cuda.synchronize()
+                st = stats[m]
+                st["seconds"] += time.perf_counter() - t0
+                st["launches"] += zebra.ZEBRA_LAUNCHES
+                st["restarts"].append(sms[m].last_restarts)
+                if not sms[m].last_linear_converged:
+                    bad.append(f"(a) deflation {m}: solve {n} did not "
+                               f"converge")
+        out = []
+        for m in modes:
+            st, sm = stats[m], sms[m]
+            if st["launches"] <= 0:
+                bad.append(f"(a) deflation {m}: no zebra launch")
+            err = float(np.abs(coords[m] - coords[None]).max())
+            if m is not None and not err < DEFL_TOL:
+                bad.append(f"(a) deflation {m}: {err:.3e} from the "
+                           f"undeflated solves")
+            desc = (f"{m or 'off'}: K {sm._defl_K}, restarts "
+                    f"{st['restarts']}, {st['launches']} zebra launches, "
+                    f"{st['seconds']:.2f} s")
+            if m is not None:
+                desc += (f", max |delta| vs off {err:.3e} (bar {DEFL_TOL}),"
+                         f" Galerkin build {self._galerkin_ms(sm, mesh, start):.2f}"
+                         f" ms")
+            out.append(desc)
+        mesh.set_flat_coords(start)
+
+        # scale 4 to 1e-10 with "y", as phase 6 runs it
+        s4 = self.mesh("scale4")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dev = DeviceSmoother(s4, classify(s4), device="cuda", rtol=1e-6,
+                             atol=1e-8, restart=10, max_restarts=10,
+                             deflation="y")
+        zebra.ZEBRA_LAUNCHES = 0
+        rhist = []
+        t0 = time.perf_counter()
+        c4, _cf, disp, iters = dev.run(s4.flat_coords(), Laplace().init(s4),
+                                       SCALE4_PICARD_CAP,
+                                       target_residual=TARGET,
+                                       restart_history=rhist)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = zebra.ZEBRA_LAUNCHES
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        if not (np.all(np.isfinite(c4)) and disp < TARGET and launches > 0):
+            bad.append(f"(a) scale 4 with deflation y: residual {disp:.3e} "
+                       f"after {iters} iterations, {launches} zebra launches")
+        p6 = ("phase 6 not run" if self._p6 is None else
+              f"phase 6: {self._p6['iters']} iterations, "
+              f"{self._p6['seconds']:.2f} s, peak {self._p6['peak_mib']:.1f}"
+              f" MiB")
+        return (f"(a) T106 deflation, {DEFL_SOLVES} solves at rtol "
+                f"{DEFL_RTOL}: " + "; ".join(out)
+                + f"; scale 4 with y (K {dev._defl_K}): {iters} Picard "
+                f"iterations to {disp:.3e} in {dt:.2f} s, restarts {rhist},"
+                f" peak {peak:.1f} MiB, {launches} zebra launches ({p6})")
+
+    def _galerkin_ms(self, sm, mesh, coords):
+        """Device time of one Galerkin build (K operator applications and
+        the K x K factorisation) at the frozen base of ``coords``, median
+        of 3 between CUDA events."""
+        from turbomesh_tpu_torch.smoothing.control_function import Laplace
+
+        X, C = sm._upload(coords, Laplace().init(mesh))
+        ctx = sm._stage_prepare32(sm._stage_base(X, C)[0], C)
+        return cuda_time_ms(self.torch, lambda: sm._defl_galerkin(ctx), 1,
+                            reps=3)[0]
+
+    def p10b_sharded_deflation(self, inp, bad):
+        import numpy as np
+
+        from turbomesh_tpu_torch.smoothing.classify import classify
+        from turbomesh_tpu_torch.smoothing.control_function import Laplace
+        from turbomesh_tpu_torch.smoothing.system import SparseSystem
+
+        t106 = self.mesh("t106")
+        lap = Laplace().init(t106)
+        t0 = time.perf_counter()
+        (r,), = self._spawn_tasks(1, "nccl", "cuda", [dict(
+            mesh=t106, cf=lap, solves=1,
+            smoother=dict(rtol=1e-15, atol=1e-18, restart=30,
+                          max_restarts=100, deflation="y"))])
+        wall = time.perf_counter() - t0
+        co = SparseSystem(t106, classify(t106)).solve(t106.flat_coords(),
+                                                       lap)
+        err = float(np.abs(r["solves"][0] - co).max())
+        if not (err < SHARDED_DEFL_TOL and r["zebra_launches"] > 0
+                and r["defl_K"] > 0):
+            bad.append(f"(b) sharded deflation: {err:.3e} from the oracle, "
+                       f"K {r['defl_K']}, {r['zebra_launches']} zebra "
+                       f"launches")
+        # as 8(b)'s Laplace solve: the oracle is the bar; the sharded plain
+        # residual stalls near 2.5e-17 on T106, above atol 1e-18, so the
+        # converged flag is printed, not held
+        return (f"(b) nccl world 1, deflation y (K {r['defl_K']}), T106 "
+                f"Laplace solve at rtol 1e-15, atol 1e-18: max |delta| vs "
+                f"host oracle {err:.3e} (bar {SHARDED_DEFL_TOL}), converged "
+                f"flag {r['converged']}, {wall:.2f} s with start-up; "
+                + self._ranks([r], "solve"))
+
+    def p10d_trace(self, inp, bad):
+        torch = self.torch
+        from turbomesh_tpu_torch.profiling import torch_trace
+        from turbomesh_tpu_torch.smoothing.classify import classify
+        from turbomesh_tpu_torch.smoothing.control_function import (
+            from_config)
+        from turbomesh_tpu_torch.smoothing.device import DeviceSmoother
+
+        mesh = self.mesh("t106")
+        white = from_config(inp.smoothing.wall_control_function)
+        dev = DeviceSmoother(mesh, classify(mesh), device="cuda", rtol=1e-4,
+                             atol=1e-11)
+        cf = white.init(mesh)
+        dev.run(mesh.flat_coords(), cf, 1, algorithm=white)   # warm-up
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
+            with torch_trace(tmp):
+                t0 = time.perf_counter()
+                dev.run(mesh.flat_coords(), cf, 1, algorithm=white)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            path = pathlib.Path(tmp) / "trace.json"
+            if not path.exists():
+                bad.append("(d) torch_trace wrote no trace")
+                return "(d) no trace"
+            size = path.stat().st_size
+            events = json.loads(path.read_text())["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        busy_us = sum(float(e.get("dur", 0.0)) for e in kernels)
+        return (f"(d) torch_trace of one T106 Picard iteration (White, "
+                f"rtol 1e-4, under the profiler): trace {size / 2**20:.1f} "
+                f"MiB, {len(kernels)} CUDA kernels, kernel time "
+                f"{busy_us / 1e3:.2f} ms of {wall * 1e3:.2f} ms wall: "
+                f"device busy {100 * busy_us / 1e6 / wall:.2f} %")
+
+    def p10e_service(self, inp, bad):
+        import urllib.request
+
+        import numpy as np
+
+        from turbomesh_tpu_torch import web
+        from turbomesh_tpu_torch import input as input_mod
+        from turbomesh_tpu_torch.smoothing import smooth_mesh
+
+        cfg = json.loads(T106.read_text())
+        httpd = web.serve(port=0, base_dir=str(T106.parent), device="cuda")
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+        def post(c):
+            req = urllib.request.Request(
+                f"{base}/run", data=json.dumps(c).encode(), method="POST",
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                return json.loads(resp.read())
+
+        def points(b, mesh):
+            ni, nj = mesh.blocks[b].size
+            with urllib.request.urlopen(f"{base}/block/{b}/points",
+                                        timeout=60) as resp:
+                raw = resp.read()
+            return np.frombuffer(raw, dtype="<f8").reshape(ni, nj, 2)
+
+        out = []
+        try:
+            for iters in (0, 2):
+                c = dict(cfg, smoothing=dict(cfg["smoothing"],
+                                             iterations=iters,
+                                             solver="device"))
+                t0 = time.perf_counter()
+                res = post(c)
+                t_srv = time.perf_counter() - t0
+                direct = input_mod.load(c, base_dir=str(T106.parent))
+                mesh = direct.template.run(direct.geometry)
+                if iters:
+                    smooth_mesh(mesh, iterations=iters, solver="device",
+                                wall_control_function=(
+                                    direct.smoothing.wall_control_function),
+                                device="cuda")
+                err = max(float(np.abs(points(b, mesh)
+                                       - mesh.blocks[b].points).max())
+                          for b in range(len(mesh.blocks)))
+                bar = 0.0 if iters == 0 else SERVICE_TOL
+                if res["blocks"] != len(mesh.blocks) or err > bar:
+                    bad.append(f"(e) service, {iters} iterations: {err:.3e} "
+                               f"from the direct run (bar {bar})")
+                out.append(f"{iters} iterations: {res['blocks']} blocks, "
+                           f"{res['points']} points, POST /run {t_srv:.2f} "
+                           f"s, max |delta| vs direct {err:.3e} (bar {bar})")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        return "(e) web.serve(device='cuda'): " + "; ".join(out)
+
+    def p10f_tfi(self, inp, bad):
+        import numpy as np
+
+        torch = self.torch
+        from turbomesh_tpu_torch import tfi
+
+        mesh = self.mesh("t106")
+        pts = max((b.points for b in mesh.blocks), key=lambda a: a.size)
+
+        def param(edge):
+            d = np.concatenate([[0.0], np.cumsum(np.linalg.norm(
+                np.diff(edge, axis=0), axis=1))])
+            return d / d[-1]
+
+        edges = (pts[:, 0], pts[:, -1], pts[0, :], pts[-1, :])
+        args = edges + (param(pts[:, 0]), param(pts[:, -1]),
+                        param(pts[0, :]), param(pts[-1, :]))
+        errs = []
+        for fn, a in ((tfi.blended_tfi, args), (tfi.linear_tfi, edges)):
+            cpu = fn(*(torch.as_tensor(x) for x in a))
+            dev = fn(*(torch.as_tensor(x, device="cuda") for x in a))
+            if dev.device.type != "cuda":
+                bad.append(f"(f) {fn.__name__} left the card")
+            errs.append(float((dev.cpu() - cpu).abs().max()))
+        if not max(errs) < TFI_TOL:
+            bad.append(f"(f) bulk TFI card vs CPU {errs}")
+        return (f"(f) blended_tfi / linear_tfi at {pts.shape[0]} x "
+                f"{pts.shape[1]}, f64: card vs CPU {errs[0]:.3e} / "
+                f"{errs[1]:.3e} (bar {TFI_TOL})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9",
-                    help="comma-separated phases to run (default: 0-9)")
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10",
+                    help="comma-separated phases to run (default: 0-10)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -1155,7 +1477,9 @@ def main(argv=None) -> int:
              (8, "8 sharded path (nccl world 1; gloo world 4 on one card)",
               smoke.p8_sharded),
              (9, "9 3-D stacked cuts (demo_3d_sharded, world 2)",
-              smoke.p9_stacked_cuts)]
+              smoke.p9_stacked_cuts),
+             (10, "10 the last modules (deflation, sharded deflation, "
+              "torch_trace, service, bulk TFI)", smoke.p10_last_modules)]
     for k, name, fn in steps:
         if k in phases:
             smoke.phase(name, fn)

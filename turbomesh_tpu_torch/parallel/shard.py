@@ -360,6 +360,7 @@ class ShardLayout:
         self.glue_local = []   # per level: (arrays, valid)
         self.glue_cross = []   # per level: (arrays, valid)
         self.glue_ex = []      # per level: Exchange
+        self.glue_corr = []    # per level: (Exchange, per-rank dicts)
 
         for gl in self.glue_levels:
             Ng, Mg = gl.N + 2, gl.M + 2
@@ -402,6 +403,67 @@ class ShardLayout:
             self.glue_local.append((larr, lvalid))
             self.glue_cross.append((xarr, xvalid))
             self.glue_ex.append(ex)
+            self.glue_corr.append(self._split_correction(gl))
+
+    def _split_correction(self, gl):
+        """Level ``gl``'s CORRECTION glue (multigrid._glue_correction) cut
+        into rank slices: the plain map made unique per destination (last
+        entry wins), minus the destinations a sliding (``c*``) or junction
+        (``j*``) entry owns, plus those entries, as ``prep_glue_arrays``
+        builds it for one device. Sources on the destination's rank are
+        ghost-space local indices; the others are positions in the level's
+        correction exchange, which carries the plain map's cross-rank
+        sources and the correction ones (one exchange a call). Returns
+        (Exchange, [per-rank dict]) with the copy entries ``src`` (local),
+        ``pos`` (exchanged), ``dst``/``w`` (local first, then exchanged)
+        and the junction rows ``jdst``, ``jloc``/``jpos``/``jrem`` (L, K)
+        and ``jw``, in the single-device order."""
+        from ..smoothing.multigrid import _last_unique
+
+        D, Bl = self.D, self.Bl
+        Mg = gl.M + 2
+        NgMg = (gl.N + 2) * Mg
+
+        def ghost_local(g):
+            return (g // NgMg % Bl) * NgMg + g % NgMg
+
+        def region(g):
+            rem = g % NgMg
+            return ((g // NgMg) * gl.N + rem // Mg - 1) * gl.M + rem % Mg - 1
+
+        u = _last_unique(gl.dst)
+        keep = ~np.isin(gl.dst[u], np.concatenate([gl.cdst, gl.jdst]))
+        src = np.concatenate([gl.src[u][keep], gl.csrc])
+        dst = np.concatenate([gl.dst[u][keep], gl.cdst])
+        w = np.concatenate([np.ones((int(keep.sum()), 2)),
+                            gl.cw.reshape(-1, 2)])
+        own = dst // NgMg // Bl
+        same = src // NgMg // Bl == own
+        jown = gl.jdst // NgMg // Bl
+        jsame = gl.jsrc // NgMg // Bl == jown[:, None]
+
+        bx = _ExchangeBuilder(D, Bl, gl.N, gl.M)
+        prov = bx.positions(own[~same], region(src[~same]))
+        jprov = bx.positions(np.broadcast_to(jown[:, None],
+                                             gl.jsrc.shape)[~jsame],
+                             region(gl.jsrc[~jsame]))
+        ex = bx.finalize()
+        pos = np.zeros(len(src), dtype=np.int64)
+        pos[~same] = bx.resolve(ex, prov)
+        jpos = np.zeros(gl.jsrc.shape, dtype=np.int64)
+        jpos[~jsame] = bx.resolve(ex, jprov)
+        jloc = np.where(jsame, ghost_local(gl.jsrc), 0)
+
+        ranks = []
+        for r in range(D):
+            loc, crs, jr = (own == r) & same, (own == r) & ~same, jown == r
+            ranks.append(dict(
+                src=ghost_local(src[loc]), pos=pos[crs],
+                dst=ghost_local(np.concatenate([dst[loc], dst[crs]])),
+                w=np.concatenate([w[loc], w[crs]]),
+                jdst=ghost_local(gl.jdst[jr]), jloc=jloc[jr], jpos=jpos[jr],
+                jrem=~jsame[jr], jw=gl.jw[jr]))
+        return ex, ranks
 
     def glue_last_wins(self, lvl):
         """(local, cross) (D, cmax) bool tables aligned with glue_local /
@@ -435,10 +497,16 @@ class ShardedSmoother(DeviceSmoother):
     rank. Defaults as the JAX package's ShardedSmoother."""
 
     adaptive_forcing = False
+    junction_deflation = False
 
     def __init__(self, mesh, info: BoundaryInfo, *, device,
                  rtol: float = 1e-12, atol: float = 1e-14,
-                 restart: int = 30, max_restarts: int = 400):
+                 restart: int = 30, max_restarts: int = 400,
+                 deflation: str | None = None):
+        """deflation: as DeviceSmoother's, modes "y" and "xy" only (the
+        columns are block-partitioned: W^T r is a local contraction and
+        one all-gather, the K x K solve runs on every rank); the junction
+        mode "j" raises ValueError."""
         import torch.distributed as dist
 
         pdist.ensure_group(device)
@@ -467,6 +535,11 @@ class ShardedSmoother(DeviceSmoother):
                         torch.float64 if k.endswith("_w") else torch.int64)
              for k, v in mp.items()}
             for mp in lay.mg_maps]
+        # logical-frame block extents; padding blocks are empty (keep = 0)
+        sizes = [b.size for b in mesh.blocks]
+        sizes += [(0, 0)] * (lay.B - len(sizes))
+        self._setup_deflation(deflation, sizes, lay.N, lay.M, lay.free_mask,
+                              np.empty(0, np.int64))
         self.last_linear_residual = float("nan")
         self.last_linear_converged = False
         self.last_restarts = 0
@@ -518,13 +591,18 @@ class ShardedSmoother(DeviceSmoother):
         lk = lvalid[r] & lkeep[r]
         xk = xvalid[r] & xkeep[r]
         ex = lay.glue_ex[lvl]
+        cex, crank = lay.glue_corr[lvl]
+        corr = {k: self._t(v, torch.float64 if k in ("w", "jw") else None)
+                for k, v in crank[r].items()}
+        corr.update(ex=cex, send=self._send(cex))
         return dict(ex=ex, send=self._send(ex),
                     src=self._t(lsrc[r][lk], torch.int64),
                     pos=self._t(xpos[r][xk], torch.int64),
                     dst=self._t(np.concatenate([ldst[r][lk], xdst[r][xk]]),
                                 torch.int64),
                     off=self._t(np.concatenate([loff[r][lk], xoff[r][xk]]),
-                                torch.float64))
+                                torch.float64),
+                    corr=corr)
 
     # -- the hooks of DeviceSmoother -----------------------------------------
 
@@ -540,23 +618,52 @@ class ShardedSmoother(DeviceSmoother):
     def _norm(self, x):
         return torch.sqrt(pdist.pdot(x, x))
 
+    def _coarse_vector(self, part):
+        return pdist.all_gather_stack(part).reshape(-1)
+
     def _glue_fn(self, lvl):
         """Level ``lvl``'s glue: pad one ghost ring, then write every
         destination from a local ghost-space source or from this level's
-        exchange table (one exchange a call, on every rank)."""
+        exchange table (one exchange a call, on every rank). Coordinate
+        and residual fields take the plain map; ``glue.correction(v)``
+        glues a correction field with the sliding and junction embeddings
+        too (multigrid._glue_correction), in the single-device arithmetic:
+        weights times the sources, junction masters the ``jw``-weighted
+        sum of their members in the same order."""
         g = self._glue[lvl]
+        c = g["corr"]
 
-        def glue(v, coord_field=False):
+        def framed(v, table):
+            """(ghost-padded v, its flat view, the exchanged values)"""
             C = v.shape[-1]
             vg = F.pad(v, (0, 0, 1, 1, 1, 1))
-            vf = vg.reshape(-1, C)
-            VAL = pdist.exchange(g["ex"], g["send"], v.reshape(-1, C))
+            VAL = pdist.exchange(table["ex"], table["send"], v.reshape(-1, C))
+            return vg, vg.reshape(-1, C), VAL
+
+        def glue(v, coord_field=False):
+            vg, vf, VAL = framed(v, g)
             vals = torch.cat([vf[g["src"]], VAL[g["pos"]]], dim=0)
             if coord_field:
                 vals = vals + g["off"].to(v.dtype)
             vf.index_copy_(0, g["dst"], vals)
             return vg
 
+        def correction(v):
+            vg, vf, VAL = framed(v, c)
+            vals = c["w"].to(v.dtype) * torch.cat([vf[c["src"]],
+                                                   VAL[c["pos"]]], dim=0)
+            dst = c["dst"]
+            if c["jdst"].shape[0]:
+                members = torch.where(c["jrem"][..., None], VAL[c["jpos"]],
+                                      vf[c["jloc"]])
+                jvals = torch.sum(c["jw"].to(v.dtype)[..., None] * members,
+                                  dim=1)
+                vals = torch.cat([vals, jvals], dim=0)
+                dst = torch.cat([dst, c["jdst"]], dim=0)
+            vf.index_copy_(0, dst, vals)
+            return vg
+
+        glue.correction = correction
         return glue
 
     def _glued_levels(self, baseX32, cf32):
@@ -620,9 +727,9 @@ def run_tasks(tasks, device="cpu"):
     keywords), build a ShardedSmoother on this rank, do ``solves``
     successive linearized solves at the fixed cf, then one ``run`` of
     ``iterations`` Picard iterations. Returns this rank's records: the
-    solutions, the run's result and histories, its seconds, and this
-    rank's zebra launches, exchanges and all_reduces with the host seconds
-    spent in them."""
+    solutions, the run's result and histories, its seconds, its coarse
+    space's size ``defl_K``, and this rank's zebra launches, exchanges and
+    all_reduces with the host seconds spent in them."""
     from ..ops import zebra
     from ..smoothing.classify import classify
 
@@ -637,7 +744,8 @@ def run_tasks(tasks, device="cpu"):
             torch.cuda.reset_peak_memory_stats(sm.device)
         zebra.ZEBRA_LAUNCHES = pdist.EXCHANGES = pdist.ALL_REDUCES = 0
         pdist.COLLECTIVE_S = 0.0
-        rec = dict(rank=sm.rank, world=sm.world, solves=[], restarts=[])
+        rec = dict(rank=sm.rank, world=sm.world, solves=[], restarts=[],
+                   defl_K=sm._defl_K)
         t0 = time.perf_counter()
         coords = mesh.flat_coords()
         for _ in range(task.get("solves", 0)):

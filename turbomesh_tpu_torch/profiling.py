@@ -5,7 +5,8 @@ The reference has a single wall-clock log around the smoothing loop
 classify, solver setup, Picard loop) is timed and node throughput
 (Mnodes/s) is reported. Device work is asynchronous: a phase that ends in
 a host read of a device value (the Picard loop's per-iteration stats)
-includes the device time.
+includes the device time. ``torch_trace`` captures a torch.profiler trace
+(Chrome trace format) around any phase.
 """
 
 from __future__ import annotations
@@ -48,3 +49,27 @@ class PhaseTimer:
     def log_report(self, nodes: int | None = None) -> None:
         for line in self.report(nodes).splitlines():
             log.info(line)
+
+
+@contextlib.contextmanager
+def torch_trace(dirname: str | None):
+    """Capture a torch.profiler trace around the enclosed phase: CPU
+    activity, plus CUDA activity when a card is present, written as a
+    Chrome trace (``trace.json``, viewable in chrome://tracing or
+    Perfetto) into ``dirname``; no-op when dirname is None. Yields the
+    profiler (None when off), whose ``events()`` the caller may read."""
+    if dirname is None:
+        yield None
+        return
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(dirname, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(dirname, "trace.json"))

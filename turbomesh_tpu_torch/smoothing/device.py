@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 
 import numpy as np
 import torch
@@ -339,6 +340,44 @@ def _zero(t):
 #: defect-correction passes of the interface solve (_interface_passes)
 INTERFACE_PASSES = 2
 
+#: coarse-space deflation modes (DeviceSmoother ``deflation``): basis
+#: components of the per-block bilinear modes; "j" is the junction mode
+DEFLATION_COMPS = {"y": (1,), "xy": (0, 1)}
+
+
+def _defl_basis_arrays(block_sizes, N, M, free_mask, comps):
+    """Per-block bilinear deflation profiles for the coarse-space solve.
+
+    Returns (FU (B,N,2), FV (B,M,2), keep (K,)) with column ordering
+    k = ((b*2 + p)*2 + q)*C + c: FU[b,:,p] / FV[b,:,q] are the 1-u / u
+    (resp. 1-v / v) ramps over the block's REAL extents (zero on padding,
+    and on a block of size (0, 0)), and keep[k]=0 marks columns that are
+    structurally zero after free-component masking (e.g. a fully fixed
+    block) so the Galerkin matrix gets an identity row/column there
+    instead of a zero pivot. comps selects basis components ((1,)='y',
+    (0,1)='xy')."""
+    B = len(block_sizes)
+    C = len(comps)
+    FU = np.zeros((B, N, 2))
+    FV = np.zeros((B, M, 2))
+    K = B * 2 * 2 * C
+    keep = np.zeros((K,))
+    for b, (ni, nj) in enumerate(block_sizes):
+        u = np.linspace(0.0, 1.0, ni)
+        v = np.linspace(0.0, 1.0, nj)
+        FU[b, :ni, 0] = 1.0 - u
+        FU[b, :ni, 1] = u
+        FV[b, :nj, 0] = 1.0 - v
+        FV[b, :nj, 1] = v
+        for p in range(2):
+            for q in range(2):
+                hat = FU[b, :, p][:, None] * FV[b, :, q][None, :]
+                for ci, c in enumerate(comps):
+                    k = ((b * 2 + p) * 2 + q) * C + ci
+                    if np.any(hat * free_mask[b, :, :, c]):
+                        keep[k] = 1.0
+    return FU, FV, keep
+
 
 class DeviceSmoother:
     """Device counterpart of SparseSystem.solve, plus the device-resident
@@ -353,10 +392,20 @@ class DeviceSmoother:
     #: inexact Picard with a target residual (run); the sharded loop keeps
     #: a fixed tolerance, as the JAX package's does
     adaptive_forcing = True
+    #: the junction deflation mode "j" (single device only)
+    junction_deflation = True
 
     def __init__(self, mesh, info: BoundaryInfo, *, device,
                  rtol: float = 1e-13, atol: float = 1e-15,
-                 restart: int = 10, max_restarts: int = 100):
+                 restart: int = 10, max_restarts: int = 100,
+                 deflation: str | None = None):
+        """deflation: opt-in coarse-space deflation at the head of every
+        preconditioner application (_defl_apply): "y" deflates a per-block
+        bilinear coarse space in the y component (the near-null mode that
+        sliding BCs allow: whole regions floating in y), "xy" both
+        components, "j" unit columns at the junction rows in both
+        components; None (default) disables. TURBOMESH_DEFLATION
+        overrides it. The JAX package measured it cost-neutral at best."""
         from .glue import build_glue
         from .multigrid import prep_glue_arrays
 
@@ -368,11 +417,19 @@ class DeviceSmoother:
         self.restart = restart
         self.max_restarts = max_restarts
         p = self.plan
-        #: the (B, N, M) of the stack this instance holds
+        #: the (B, N, M) of the stack this instance holds, and its blocks'
+        #: range in the whole stack
         self._shape = (p.B, p.N, p.M)
+        self._lo, self._hi = 0, p.B
         tens = plan_tensors(p, self.device)
         self._p64 = tens["p64"]
         self._p32 = tens["p32"]
+        # STORAGE-frame block extents (transposed blocks store (nj, ni))
+        sizes = [(nj, ni) if t else (ni, nj)
+                 for (ni, nj), t in zip((b.size for b in mesh.blocks),
+                                        p.transposed)]
+        self._setup_deflation(deflation, sizes, p.N, p.M, p.free_mask,
+                              p.l_row)
         # keep_boundaries: boundary-aligned coarse lattices, so block axes
         # whose lattice length goes even keep their far boundary at every
         # level (plain [::2] moves the coarse Dirichlet up to 2^level
@@ -384,6 +441,48 @@ class DeviceSmoother:
         self.last_linear_converged = False
         self.last_restarts = 0
         self.last_run_rtols = []
+
+    def _setup_deflation(self, deflation, block_sizes, N, M, free_mask,
+                         l_row):
+        """The coarse space of ``deflation`` (or TURBOMESH_DEFLATION) over
+        the whole stack's blocks (``block_sizes`` in the storage frame,
+        ``free_mask`` (B, N, M, 2)); this instance keeps the profiles of
+        its blocks [_lo, _hi). Sets ``_defl_mode`` (None, "bilinear" or
+        "junction"), ``_defl_comps`` and ``_defl_K`` (0 when off)."""
+        mode = os.environ.get("TURBOMESH_DEFLATION", "") or deflation
+        if mode in (None, "", "0"):
+            mode = None
+        elif mode != "j" and mode not in DEFLATION_COMPS:
+            raise ValueError(f"deflation {mode!r}: expected one of 'y', "
+                             f"'xy', 'j' or None")
+        elif mode == "j" and not self.junction_deflation:
+            raise ValueError("junction deflation ('j') is single-device "
+                             "only: use DeviceSmoother, or 'y' / 'xy' here")
+        self._defl_mode, self._defl_comps, self._defl_K = None, (), 0
+        f64 = dict(dtype=torch.float64, device=self.device)
+        if mode == "j":
+            # junction-indicator mode: unit columns at the LAPLACIAN
+            # (junction) rows, both components — the exact coupled
+            # junction solve each preconditioner application
+            jrows = np.unique(l_row)
+            if len(jrows):
+                self._defl_mode, self._defl_comps = "junction", (0, 1)
+                keep = free_mask.reshape(-1, 2)[jrows].astype(
+                    np.float64).ravel()
+                self._djr = torch.as_tensor(jrows, dtype=torch.int64,
+                                            device=self.device)
+                self._dkeep = torch.as_tensor(keep, **f64)
+                self._defl_K = len(keep)
+        elif mode is not None:
+            comps = DEFLATION_COMPS[mode]
+            fu, fv, keep = _defl_basis_arrays(block_sizes, N, M, free_mask,
+                                              comps)
+            self._defl_mode, self._defl_comps = "bilinear", comps
+            f32 = dict(dtype=torch.float32, device=self.device)
+            self._dfu = torch.as_tensor(fu[self._lo:self._hi], **f32)
+            self._dfv = torch.as_tensor(fv[self._lo:self._hi], **f32)
+            self._dkeep = torch.as_tensor(keep, **f64)
+            self._defl_K = len(keep)
 
     # -- residual / operator --------------------------------------------------
 
@@ -406,6 +505,12 @@ class DeviceSmoother:
 
     def _norm(self, x):
         return torch.linalg.vector_norm(x)
+
+    def _coarse_vector(self, part):
+        """The whole block-partitioned coarse vector (K,) from this
+        instance's blocks' part (Bl, ...): the part itself on one device,
+        an all-gather in rank order when sharded."""
+        return part.reshape(-1)
 
     def _substitute(self, Xf, with_offsets: float):
         """Slave substitution x_slave = x_master + with_offsets * offset."""
@@ -584,9 +689,12 @@ class DeviceSmoother:
         G = torch.stack([g11, g12, g22], dim=-1).to(torch.float32)
         cG64 = self._conn_metrics(baseF, baseV)
 
-        return dict(baseF32=baseF32, cf32=cf32, diag=diag_field, chain=ch,
-                    G=G, cG=cG64.to(torch.float32), cG64=cG64, mg=levels,
-                    glue_fns=glue_fns)
+        ctx = dict(baseF32=baseF32, cf32=cf32, diag=diag_field, chain=ch,
+                   G=G, cG=cG64.to(torch.float32), cG64=cG64, mg=levels,
+                   glue_fns=glue_fns)
+        if self._defl_K:
+            ctx["defl"] = self._defl_galerkin(ctx)
+        return ctx
 
     def _stage_A32(self, ctx, v):
         """f32 linear operator application."""
@@ -594,6 +702,89 @@ class DeviceSmoother:
         baseF32 = ctx["baseF32"]
         return self._apply(baseF32.reshape(B, N, M, 2), baseF32, ctx["cf32"],
                            v, 0.0, G=ctx["G"], cG=ctx["cG"])
+
+    # -- coarse-space deflation (implicit per-block bilinear basis) ----------
+    #
+    # The exact Petrov-Galerkin solve over a tiny coarse space W (per block,
+    # 4 bilinear corner hats in the free components, or unit columns at the
+    # junction rows): alpha = (W^T A W)^-1 W^T r; z0 = W alpha; then the
+    # Schur composition on r - A z0. W is never materialized: each column
+    # is a rank-1 FU x FV outer product, so W^T r and W alpha are two small
+    # per-block contractions; the K x K Galerkin matrix (K = 4B or 8B) is
+    # rebuilt each prepare from K sequential f32 operator applications.
+
+    def _defl_Wt(self, vflat):
+        """W^T v: (P, 2) f32 field -> (K,) coarse vector."""
+        vm = vflat * self._p32["free_mask"].reshape(-1, 2)
+        if self._defl_mode == "junction":
+            return vm[self._djr].reshape(-1)
+        B, N, M = self._shape
+        v = vm.reshape(B, N, M, 2)
+        outs = []
+        for c in self._defl_comps:
+            t = torch.einsum("bnp,bnm->bpm", self._dfu, v[..., c])
+            outs.append(torch.einsum("bpm,bmq->bpq", t, self._dfv))
+        return self._coarse_vector(torch.stack(outs, dim=-1))
+
+    def _defl_W(self, alpha):
+        """W alpha: (K,) f32 -> (P, 2) correction field of this
+        instance's blocks."""
+        B, N, M = self._shape
+        free = self._p32["free_mask"]
+        if self._defl_mode == "junction":
+            z = torch.zeros((B * N * M, 2), dtype=alpha.dtype,
+                            device=alpha.device)
+            z = z.index_copy(0, self._djr, alpha.reshape(-1, 2))
+            return z * free.reshape(-1, 2)
+        C = len(self._defl_comps)
+        a = alpha.reshape(-1, 2, 2, C)[self._lo:self._hi]
+        z = torch.zeros((B, N, M, 2), dtype=alpha.dtype, device=alpha.device)
+        for ci, c in enumerate(self._defl_comps):
+            t = torch.einsum("bpq,bnp->bnq", a[..., ci], self._dfu)
+            z[..., c] = torch.einsum("bnq,bmq->bnm", t, self._dfv)
+        return (z * free).reshape(-1, 2)
+
+    def _defl_galerkin(self, ctx):
+        """The equilibrated (K, K) Galerkin matrix W^T A W of the f32
+        operator, its scaling vector and its LU factors: K sequential
+        operator applications (one basis column each, so peak memory stays
+        at one field), then in f64 identity rows at the structurally zero
+        columns and the symmetric equilibration rsqrt(|diag|). The K x K
+        algebra runs in f64 without a ridge: a ridge or an f32 solve puts
+        a systematic bias on the coarse-mode elimination that the outer
+        FGMRES stalls at. Returns dict(G, D, LU, piv)."""
+        K = self._defl_K
+        eye = torch.eye(K, dtype=torch.float32, device=self.device)
+        cols = [self._defl_Wt(self._stage_A32(ctx, self._defl_W(eye[k])))
+                for k in range(K)]
+        G = torch.stack(cols, dim=1).to(torch.float64)
+        keep = self._dkeep
+        G = G * keep[:, None] * keep[None, :] + torch.diag(1.0 - keep)
+        d = torch.rsqrt(torch.abs(torch.diagonal(G)) + 1e-300)
+        G = G * d[:, None] * d[None, :]
+        LU, piv, _ = torch.linalg.lu_factor_ex(G)
+        return dict(G=G, D=d, LU=LU, piv=piv)
+
+    def _defl_apply(self, ctx, vflat):
+        """Safeguarded coarse solve: returns (t z0, v - t A z0).
+
+        The raw Petrov-Galerkin correction is unsafe for this nonsymmetric
+        A: when the residual has little true coarse content, (W^T A W)^-1
+        makes a correction whose image A z0 dwarfs v outside the coarse
+        space and stalls the outer FGMRES. So the Galerkin direction is
+        scaled by the weighted least-squares step t = <D^2 v, A z0> /
+        <D^2 A z0, A z0> (D = 1/|diag|, f32 dots: t is a safeguard, three
+        digits do), which guarantees ||D (v - t A z0)|| <= ||D v||."""
+        dfl = ctx["defl"]
+        rhs = self._defl_Wt(vflat).to(torch.float64) * dfl["D"]
+        alpha = dfl["D"] * torch.linalg.lu_solve(
+            dfl["LU"], dfl["piv"], rhs[:, None])[:, 0]
+        z0 = self._defl_W(alpha.to(torch.float32))
+        Az0 = self._stage_A32(ctx, z0)
+        w = 1.0 / ctx["diag"].reshape(-1, 2)
+        wA = w * Az0
+        t = self._dot(w * vflat, wA) / (self._dot(wA, wA) + 1e-30)
+        return t * z0, vflat - t * Az0
 
     def _stage_vcycle_interior(self, ctx, vflat):
         """f32 glued multigrid V-cycle: block interiors + SMOOTHED
@@ -680,12 +871,20 @@ class DeviceSmoother:
                                      V-cycle's operator the Schur
                                      complement; this adds its rhs)
           rr = v - A (z + e)
-          M^-1 v = z + e + interface_passes(rr)"""
+          M^-1 v = z + e + interface_passes(rr)
+        With deflation on, the coarse-space solve goes first
+        (_defl_apply): the composition runs on v - t A z0, and t z0 is
+        added to its result."""
+        z0 = None
+        if "defl" in ctx:
+            z0, vflat = self._defl_apply(ctx, vflat)
         e = self._stage_interface(ctx, vflat)
         ze = self._stage_vcycle_interior(
             ctx, vflat - self._stage_A32(ctx, e)) + e
         rr = vflat - self._stage_A32(ctx, ze)
-        return ze + self._interface_passes(ctx, rr)
+        if z0 is None:
+            return ze + self._interface_passes(ctx, rr)
+        return z0 + ze + self._interface_passes(ctx, rr)
 
     # -- the linear solve -------------------------------------------------------
 

@@ -103,7 +103,8 @@ def build_glued_levels(base, cf, glue_levels, glue_fns=None, masks=None,
     ``glue_levels`` is read only for its length:
     glue_fns: per-level callables ``fn(v, coord_field) -> ghost-augmented
     v`` in place of the glue map (local gathers plus one cross-rank
-    exchange); they glue coordinates, residuals and corrections alike.
+    exchange) for coordinates and residuals; ``fn.correction(v)``, where
+    present, glues corrections (_glue_correction).
     masks: per-level smooth masks; maps: per-level transfer maps (None or
     a dict of MAP_KEYS) — this rank's slices."""
     dt = base.dtype
@@ -218,9 +219,12 @@ def _glue_correction(level, v, glue_fn=None):
     level-local first interior neighbor (x forced to 0). One gather and
     one scatter over a map with unique destinations; values read the
     pre-scatter field. Never apply to coordinate or residual fields.
-    With ``glue_fn`` (the sharded path) that callable glues instead."""
+    With ``glue_fn`` (the sharded path) its ``correction`` variant glues
+    instead; a glue callable without one (a mesh with no sliding or
+    junction rows) glues corrections with its plain map."""
     if glue_fn is not None:
-        return glue_fn(v, False)
+        corr = getattr(glue_fn, "correction", None)
+        return glue_fn(v, False) if corr is None else corr(v)
     vg = F.pad(v, (0, 0, 1, 1, 1, 1))
     shape = vg.shape
     vf = vg.reshape(-1, v.shape[-1])
