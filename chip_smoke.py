@@ -84,6 +84,18 @@ Phases (each prints its result and wall time on its own line):
      smoothing; (f) tfi.blended_tfi and linear_tfi on the card in f64 at
      the largest T106 block's size against the same calls on the CPU
      (1e-14).
+ 11. the preconditioner's options (``mg_opts``): (a) T106, one linearized
+     solve with the White control function at rtol MG_RTOL, FGMRES(30),
+     by DeviceSmoother with each of MG_CONFIGS beside the default: every
+     solve converged and within 1e-9 of the default one, and the zebra
+     launches equal to the preconditioner applications times
+     ``multigrid.vcycle_half_sweeps`` of the instance's schedule and
+     depth (counts set to 0 just before each solve and read just after);
+     restarts, launches and walls printed; (b) scale 4 with ``schur`` False to
+     1e-10 as phase 6 runs it, beside phase 6; (c) ShardedSmoother, NCCL
+     world 1, the T106 Laplace solve at rtol 1e-15, undeflated in the
+     Schur and then the base composition, each within 1e-10 of the host
+     oracle, the restarts beside 10(b)'s deflated ones.
 
 Times: a call's time is a run of back-to-back calls between two CUDA
 events over the count, median of several runs (cuda_time_ms); the window
@@ -178,6 +190,23 @@ DEFL_SOLVES = 3
 SHARDED_DEFL_TOL = 1e-9
 SERVICE_TOL = 1e-12
 TFI_TOL = 1e-14
+# phase 11 (a): each option's T106 solve against the default's, FGMRES(30)
+# as 10(a), at rtol MG_RTOL. At 1e-13 a T106 solve stops up to ~3e-9 from
+# the exact one (the plain-residual criterion; phase 5), so two
+# preconditioners that both meet it may differ by more than MG_TOL; at
+# 1e-14, atol 1e-17 the options stand 1e-11 or closer (PERF.md §6). One
+# solve, not 10(a)'s three: three took about 300 s on the card, where the
+# host issues every kernel.
+MG_CONFIGS = (
+    ("schur False", {"schur": False}),
+    ("interface_passes 1", {"interface_passes": 1}),
+    ("interface_passes 4", {"interface_passes": 4}),
+    ("pre_dirs j, post_dirs i", {"pre_dirs": "j", "post_dirs": "i"}),
+    ("pre 2, post 2, coarse_iters 8", {"pre": 2, "post": 2,
+                                       "coarse_iters": 8}),
+    ("n_levels 3", {"n_levels": 3}))
+MG_RTOL, MG_ATOL, MG_RESTART = 1e-14, 1e-17, 30
+MG_TOL = 1e-9
 
 # Bounds: H100 SXM peaks from NVIDIA's data sheet (700 W): device memory
 # 3.35 TB/s; outside the tensor cores 67 TFLOP/s in f32, 34 in f64.
@@ -278,18 +307,79 @@ def level0_sweeps(mesh, device, seed):
 
 
 def vcycle_calls(levels):
-    """The zebra half-sweeps of one V-cycle (``multigrid.v_cycle_glued``),
-    in order, from ``level_sweeps(..., colors=(0, 1))``: PRE_SMOOTH +
-    POST_SMOOTH smooths on each level above the coarsest, COARSE_ITERS on
-    the coarsest, each smooth four half-sweeps."""
-    from turbomesh_tpu_torch.smoothing import multigrid as mg
+    """The zebra half-sweeps of one default V-cycle (``multigrid.
+    v_cycle_glued`` with ``DeviceSmoother.MG_DEFAULTS``), in order, from
+    ``level_sweeps(..., colors=(0, 1))``: pre + post smooths on each level
+    above the coarsest, coarse_iters on the coarsest, each smooth four
+    half-sweeps."""
+    from turbomesh_tpu_torch.smoothing.device import DeviceSmoother
 
+    o = DeviceSmoother.MG_DEFAULTS
     calls = []
     for lvl, sweeps in enumerate(levels):
-        smooths = (mg.COARSE_ITERS if lvl == len(levels) - 1
-                   else mg.PRE_SMOOTH + mg.POST_SMOOTH)
+        smooths = (o["coarse_iters"] if lvl == len(levels) - 1
+                   else o["pre"] + o["post"])
         calls += sweeps * smooths
     return calls
+
+
+def count_applications(sm):
+    """Count the preconditioner applications of smoother ``sm`` in
+    ``sm.applications`` (one V-cycle each)."""
+    inner = sm._stage_Minv
+
+    def counted(ctx, v):
+        sm.applications += 1
+        return inner(ctx, v)
+
+    sm.applications = 0
+    sm._stage_Minv = counted
+
+
+def predicted_launches(sm):
+    """The zebra launches of ``sm``'s counted applications: each one
+    V-cycle of its schedule over its hierarchy's depth."""
+    from turbomesh_tpu_torch.smoothing import multigrid as mg
+
+    o = sm.mg_opts
+    return sm.applications * mg.vcycle_half_sweeps(
+        len(sm._glue_dev), o["pre"], o["post"], o["coarse_iters"],
+        o["pre_dirs"], o["post_dirs"])
+
+
+def mg_option_solves(mesh, cf, device, sync):
+    """Phase 11 (a): one linearized solve of ``mesh`` at control function
+    ``cf`` by a DeviceSmoother on ``device`` with the default options and
+    with each of MG_CONFIGS. ``sync()`` waits for the device. Returns per
+    config (name, the opts, the glued levels, the restarts, the zebra
+    launches measured and predicted, seconds, max |delta| vs the default
+    solve, converged)."""
+    import numpy as np
+
+    from turbomesh_tpu_torch.ops import zebra
+    from turbomesh_tpu_torch.smoothing.classify import classify
+    from turbomesh_tpu_torch.smoothing.device import DeviceSmoother
+
+    info = classify(mesh)
+    runs = []
+    for name, opts in (("default", None),) + MG_CONFIGS:
+        sm = DeviceSmoother(mesh, info, device=device, rtol=MG_RTOL,
+                            atol=MG_ATOL, restart=MG_RESTART, mg_opts=opts)
+        count_applications(sm)
+        sync()
+        zebra.ZEBRA_LAUNCHES = 0
+        t0 = time.perf_counter()
+        coords = sm.solve(mesh.flat_coords(), cf)
+        sync()
+        seconds = time.perf_counter() - t0
+        runs.append(dict(
+            name=name, opts=opts, coords=coords, levels=len(sm._glue_dev),
+            restarts=sm.last_restarts, launches=zebra.ZEBRA_LAUNCHES,
+            predicted=predicted_launches(sm), seconds=seconds,
+            converged=sm.last_linear_converged,
+            err=float(np.abs(coords - runs[0]["coords"]).max()) if runs
+            else 0.0))
+    return runs
 
 
 def ptxas_report(log):
@@ -443,6 +533,7 @@ class Smoke:
         self._meshes = {}
         self._scale4 = None   # phase 6's scale-4 coordinates
         self._p6 = None       # phase 6's iterations, wall, peak MiB
+        self._p10b_restarts = None   # 10(b)'s deflated sharded restarts
         # zebra: one kernel for the four TPU decompositions of the
         # half-sweep (the default split pair, the fused PCR and the Thomas
         # variant)
@@ -1299,6 +1390,7 @@ class Smoke:
             smoother=dict(rtol=1e-15, atol=1e-18, restart=30,
                           max_restarts=100, deflation="y"))])
         wall = time.perf_counter() - t0
+        self._p10b_restarts = r["restarts"]
         co = SparseSystem(t106, classify(t106)).solve(t106.flat_coords(),
                                                        lap)
         err = float(np.abs(r["solves"][0] - co).max())
@@ -1440,10 +1532,131 @@ class Smoke:
                 f"{errs[1]:.3e} (bar {TFI_TOL})")
 
 
+    # -- the preconditioner's options ----------------------------------------
+
+    def p11_mg_opts(self):
+        from turbomesh_tpu_torch import input as input_mod
+
+        inp = input_mod.load(str(T106), base_dir=str(T106.parent))
+        bad, lines = [], []
+        for part in (self.p11a_options, self.p11b_scale4_base,
+                     self.p11c_sharded):
+            t0 = time.perf_counter()
+            line = f"{part(inp, bad)} ({time.perf_counter() - t0:.2f} s)"
+            print("  " + line, flush=True)
+            lines.append(line)
+        if bad:
+            raise AssertionError("; ".join(bad))
+        return "; ".join(lines)
+
+    def p11a_options(self, inp, bad):
+        from turbomesh_tpu_torch.smoothing.control_function import (
+            from_config)
+        from turbomesh_tpu_torch.smoothing.device import DeviceSmoother
+
+        mesh = self.mesh("t106")
+        cf = from_config(inp.smoothing.wall_control_function).init(mesh)
+        runs = mg_option_solves(mesh, cf, "cuda", self.torch.cuda.synchronize)
+        out = []
+        for run in runs:
+            name = run["name"]
+            if not run["converged"]:
+                bad.append(f"(a) {name}: the solve did not converge")
+            if run["launches"] <= 0 or run["launches"] != run["predicted"]:
+                bad.append(f"(a) {name}: {run['launches']} zebra launches, "
+                           f"the schedule predicts {run['predicted']}")
+            if run["opts"] is not None and not run["err"] < MG_TOL:
+                bad.append(f"(a) {name}: {run['err']:.3e} from the default "
+                           f"solve")
+            out.append(f"{name} (L {run['levels']}): restarts "
+                       f"{run['restarts']}, {run['launches']} zebra launches "
+                       f"(predicted {run['predicted']}), "
+                       f"{run['seconds']:.2f} s"
+                       + ("" if run["opts"] is None else
+                          f", max |delta| vs default {run['err']:.3e}"))
+        return (f"(a) T106 White solve at rtol {MG_RTOL}, atol {MG_ATOL}, "
+                f"FGMRES({MG_RESTART}) (defaults "
+                f"{DeviceSmoother.MG_DEFAULTS}; bar {MG_TOL}): "
+                + "; ".join(out))
+
+    def p11b_scale4_base(self, inp, bad):
+        import numpy as np
+
+        torch = self.torch
+        from turbomesh_tpu_torch.ops import zebra
+        from turbomesh_tpu_torch.smoothing.classify import classify
+        from turbomesh_tpu_torch.smoothing.control_function import Laplace
+        from turbomesh_tpu_torch.smoothing.device import DeviceSmoother
+
+        s4 = self.mesh("scale4")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dev = DeviceSmoother(s4, classify(s4), device="cuda", rtol=1e-6,
+                             atol=1e-8, restart=10, max_restarts=10,
+                             mg_opts={"schur": False})
+        zebra.ZEBRA_LAUNCHES = 0
+        rhist = []
+        t0 = time.perf_counter()
+        c4, _cf, disp, iters = dev.run(s4.flat_coords(), Laplace().init(s4),
+                                       SCALE4_PICARD_CAP,
+                                       target_residual=TARGET,
+                                       restart_history=rhist)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = zebra.ZEBRA_LAUNCHES
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        if not (np.all(np.isfinite(c4)) and disp < TARGET and launches > 0):
+            bad.append(f"(b) scale 4 with schur False: residual {disp:.3e} "
+                       f"after {iters} iterations, {launches} zebra launches")
+        p6 = ("phase 6 not run" if self._p6 is None else
+              f"phase 6: {self._p6['iters']} iterations, "
+              f"{self._p6['seconds']:.2f} s, peak {self._p6['peak_mib']:.1f}"
+              f" MiB")
+        return (f"(b) scale 4 with schur False: {iters} Picard iterations to "
+                f"{disp:.3e} in {dt:.2f} s, restarts {rhist}, peak "
+                f"{peak:.1f} MiB, {launches} zebra launches ({p6})")
+
+    def p11c_sharded(self, inp, bad):
+        import numpy as np
+
+        from turbomesh_tpu_torch.smoothing.classify import classify
+        from turbomesh_tpu_torch.smoothing.control_function import Laplace
+        from turbomesh_tpu_torch.smoothing.system import SparseSystem
+
+        t106 = self.mesh("t106")
+        lap = Laplace().init(t106)
+        tol = dict(rtol=1e-15, atol=1e-18, restart=30, max_restarts=100)
+        names = ("schur", "schur False")
+        t0 = time.perf_counter()
+        (recs,) = self._spawn_tasks(1, "nccl", "cuda", [
+            dict(mesh=t106, cf=lap, solves=1, smoother=tol),
+            dict(mesh=t106, cf=lap, solves=1,
+                 smoother=dict(tol, mg_opts={"schur": False}))])
+        wall = time.perf_counter() - t0
+        co = SparseSystem(t106, classify(t106)).solve(t106.flat_coords(),
+                                                       lap)
+        out = []
+        for name, r in zip(names, recs):
+            err = float(np.abs(r["solves"][0] - co).max())
+            if not (err < ORACLE_TOL and r["zebra_launches"] > 0
+                    and r["defl_K"] == 0):
+                bad.append(f"(c) sharded {name}: {err:.3e} from the oracle, "
+                           f"{r['zebra_launches']} zebra launches, K "
+                           f"{r['defl_K']}")
+            # the converged flag is printed, not held (10(b))
+            out.append(f"{name}: max |delta| vs host oracle {err:.3e} (bar "
+                       f"{ORACLE_TOL}), restarts {r['restarts']}, converged "
+                       f"flag {r['converged']}; " + self._ranks([r], name))
+        return (f"(c) nccl world 1, undeflated, T106 Laplace solve at rtol "
+                f"1e-15, atol 1e-18, FGMRES(30), {wall:.2f} s with start-up "
+                f"(10(b), deflated y: restarts "
+                f"{self._p10b_restarts or 'not run'}): " + "; ".join(out))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10",
-                    help="comma-separated phases to run (default: 0-10)")
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11",
+                    help="comma-separated phases to run (default: 0-11)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -1479,7 +1692,8 @@ def main(argv=None) -> int:
              (9, "9 3-D stacked cuts (demo_3d_sharded, world 2)",
               smoke.p9_stacked_cuts),
              (10, "10 the last modules (deflation, sharded deflation, "
-              "torch_trace, service, bulk TFI)", smoke.p10_last_modules)]
+              "torch_trace, service, bulk TFI)", smoke.p10_last_modules),
+             (11, "11 preconditioner options (mg_opts)", smoke.p11_mg_opts)]
     for k, name, fn in steps:
         if k in phases:
             smoke.phase(name, fn)

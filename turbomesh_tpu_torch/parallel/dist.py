@@ -195,7 +195,7 @@ def _rank_main(rank, world, backend, device, store_path, fn, args, results):
         raise
 
 
-def spawn(fn, world: int, backend: str, device="cpu", args=()) -> list:
+def spawn(fn, world: int, backend: str, device, args=()) -> list:
     """Run ``fn(*args)`` on ``world`` new processes that form one process
     group (``backend`` over a FileStore in a fresh temporary directory, so
     concurrent worlds never share a port or a file), and return the

@@ -18,8 +18,9 @@ The solve is the single-device one: ``ShardedSmoother`` subclasses
 ``DeviceSmoother`` and overrides only what moves data across ranks (the
 stage-S and stage-F exchanges, the dot product, the per-level glue
 closures of the V-cycle, the host transfers and the control-function
-update). Every rank runs the same f64 FGMRES, the same f32 Schur
-composition ``_stage_Minv`` and the same zebra kernel on its slice.
+update). Every rank runs the same f64 FGMRES, the same f32 composition
+``_stage_Minv`` (Schur or base, ``mg_opts``) and the same zebra kernel on
+its slice.
 
 Counterpart of turbomesh_tpu/parallel/shard.py (``ShardedSmoother``).
 """
@@ -502,13 +503,27 @@ class ShardedSmoother(DeviceSmoother):
     def __init__(self, mesh, info: BoundaryInfo, *, device,
                  rtol: float = 1e-12, atol: float = 1e-14,
                  restart: int = 30, max_restarts: int = 400,
-                 deflation: str | None = None):
+                 deflation: str | None = None,
+                 mg_opts: dict | None = None):
         """deflation: as DeviceSmoother's, modes "y" and "xy" only (the
         columns are block-partitioned: W^T r is a local contraction and
         one all-gather, the K x K solve runs on every rank); the junction
-        mode "j" raises ValueError."""
+        mode "j" raises ValueError. mg_opts: as DeviceSmoother's, where
+        ``schur``, ``interface_passes`` and ``deflation`` take effect; a
+        schedule key (SCHEDULE_KEYS) away from its default raises
+        ValueError, since the sharded hierarchy and V-cycle run the
+        default schedule (as the JAX package's sharded path does), and
+        ``adaptive_rtol`` has no effect (the loop keeps a fixed
+        tolerance)."""
         import torch.distributed as dist
 
+        deflation = self._set_mg_opts(mg_opts, deflation)
+        odd = [k for k in self.SCHEDULE_KEYS
+               if self.mg_opts[k] != self.MG_DEFAULTS[k]]
+        if odd:
+            raise ValueError(f"mg_opts {odd}: the V-cycle schedule and depth "
+                             f"are single-device only: use DeviceSmoother, "
+                             f"or the defaults here")
         pdist.ensure_group(device)
         self.rank, self.world = dist.get_rank(), dist.get_world_size()
         self.device = pdist.rank_device(device)
@@ -719,12 +734,13 @@ class ShardedSmoother(DeviceSmoother):
         return update
 
 
-def run_tasks(tasks, device="cpu"):
-    """Spawn target (``dist.spawn(run_tasks, D, backend, device,
-    args=(tasks, device))``): for each task, a dict with ``mesh`` and
-    ``cf`` (global host arrays) and optionally ``solves``, ``iterations``,
-    ``algorithm``, ``target_residual`` and ``smoother`` (ShardedSmoother
-    keywords), build a ShardedSmoother on this rank, do ``solves``
+def run_tasks(tasks, *, device):
+    """Spawn target (``dist.spawn(functools.partial(run_tasks,
+    device=device), D, backend, device, args=(tasks,))``): for each task,
+    a dict with ``mesh`` and ``cf`` (global host arrays) and optionally
+    ``solves``, ``iterations``, ``algorithm``, ``target_residual`` and
+    ``smoother`` (ShardedSmoother keywords), build a ShardedSmoother on
+    this rank, do ``solves``
     successive linearized solves at the fixed cf, then one ``run`` of
     ``iterations`` Picard iterations. Returns this rank's records: the
     solutions, the run's result and histories, its seconds, its coarse

@@ -11,8 +11,9 @@ tensors:
   (equality) substitutions are gathers and unique-index scatters over
   precomputed index plans — the same equations the host oracle assembles;
 - each linear solve is exact-f64 FGMRES over the equilibrated system,
-  preconditioned by an f32 Schur composition of the interface solve and
-  the glued multigrid V-cycle (zebra line relaxation, multigrid.py);
+  preconditioned by an f32 composition of the interface solve and the
+  glued multigrid V-cycle (zebra line relaxation, multigrid.py): the
+  Schur one by default, the base one with ``mg_opts={"schur": False}``;
   dual stop test (row-relative + the reference's plain criterion,
   GMRES.zig:21-24).
 
@@ -337,9 +338,6 @@ def _zero(t):
     return torch.zeros((), dtype=t.dtype, device=t.device)
 
 
-#: defect-correction passes of the interface solve (_interface_passes)
-INTERFACE_PASSES = 2
-
 #: coarse-space deflation modes (DeviceSmoother ``deflation``): basis
 #: components of the per-block bilinear modes; "j" is the junction mode
 DEFLATION_COMPS = {"y": (1,), "xy": (0, 1)}
@@ -394,18 +392,43 @@ class DeviceSmoother:
     adaptive_forcing = True
     #: the junction deflation mode "j" (single device only)
     junction_deflation = True
+    #: the preconditioner's options (``mg_opts``), the JAX package's keys
+    #: and defaults plus ``adaptive_rtol``:
+    #: pre, post, coarse_iters, pre_dirs, post_dirs: the V-cycle schedule
+    #: (multigrid.v_cycle_glued; directions "ij", "i" or "j");
+    #: n_levels: the hierarchy's depth (None: coarsen to the smallest);
+    #: deflation: as the keyword of the same name;
+    #: interface_passes: defect-correction passes of the interface solve
+    #: (_interface_passes);
+    #: schur: the Schur composition of _stage_Minv (True) or the base one
+    #: (False); None reads TURBOMESH_SCHUR (default "1");
+    #: adaptive_rtol: the adaptive forcing of run (TURBOMESH_ADAPTIVE_RTOL
+    #: = "0" also turns it off).
+    MG_DEFAULTS = dict(pre=1, post=1, coarse_iters=4,
+                       pre_dirs="ij", post_dirs="ij", n_levels=None,
+                       deflation=None, interface_passes=2, schur=None,
+                       adaptive_rtol=True)
+    #: the mg_opts keys that set the V-cycle's schedule and depth
+    SCHEDULE_KEYS = ("pre", "post", "coarse_iters", "pre_dirs", "post_dirs",
+                     "n_levels")
 
     def __init__(self, mesh, info: BoundaryInfo, *, device,
                  rtol: float = 1e-13, atol: float = 1e-15,
                  restart: int = 10, max_restarts: int = 100,
-                 deflation: str | None = None):
+                 max_iters: int | None = None,
+                 deflation: str | None = None,
+                 mg_opts: dict | None = None):
         """deflation: opt-in coarse-space deflation at the head of every
         preconditioner application (_defl_apply): "y" deflates a per-block
         bilinear coarse space in the y component (the near-null mode that
         sliding BCs allow: whole regions floating in y), "xy" both
         components, "j" unit columns at the junction rows in both
         components; None (default) disables. TURBOMESH_DEFLATION
-        overrides it. The JAX package measured it cost-neutral at best."""
+        overrides it. The JAX package measured it cost-neutral at best.
+        mg_opts: the preconditioner's options over MG_DEFAULTS (an unknown
+        key raises ValueError; ``deflation`` here or as the keyword, not
+        both). max_iters: FGMRES iterations in all, the JAX package's
+        alias of max_restarts = max(1, max_iters // restart)."""
         from .glue import build_glue
         from .multigrid import prep_glue_arrays
 
@@ -415,7 +438,10 @@ class DeviceSmoother:
         self.rtol = rtol
         self.atol = atol
         self.restart = restart
+        if max_iters is not None:
+            max_restarts = max(1, max_iters // restart)
         self.max_restarts = max_restarts
+        deflation = self._set_mg_opts(mg_opts, deflation)
         p = self.plan
         #: the (B, N, M) of the stack this instance holds, and its blocks'
         #: range in the whole stack
@@ -435,12 +461,40 @@ class DeviceSmoother:
         # level (plain [::2] moves the coarse Dirichlet up to 2^level
         # cells inside the block)
         glue = build_glue(mesh, info, p.N, p.M,
+                          n_levels=self.mg_opts["n_levels"],
                           transposed=p.transposed, keep_boundaries=True)
         self._glue_dev = prep_glue_arrays(glue, self.device)
         self.last_linear_residual = float("nan")
         self.last_linear_converged = False
         self.last_restarts = 0
         self.last_run_rtols = []
+
+    def _set_mg_opts(self, mg_opts, deflation):
+        """Merge ``mg_opts`` over MG_DEFAULTS into ``self.mg_opts``, fix
+        the composition (``_schur``) and return the deflation mode that
+        the keyword or mg_opts gives. Unknown keys raise ValueError, and
+        so does a deflation given both ways."""
+        opts = dict(mg_opts or {})
+        unknown = sorted(set(opts) - set(self.MG_DEFAULTS))
+        if unknown:
+            raise ValueError(f"unknown mg_opts keys {unknown}: expected "
+                             f"some of {sorted(self.MG_DEFAULTS)}")
+        for key in ("pre_dirs", "post_dirs"):
+            if opts.get(key, "ij") not in ("ij", "i", "j"):
+                raise ValueError(f"mg_opts {key} {opts[key]!r}: expected "
+                                 f"'ij', 'i' or 'j'")
+        if opts.get("deflation") is not None:
+            if deflation is not None:
+                raise ValueError("deflation given both as a keyword and in "
+                                 "mg_opts")
+            deflation = opts["deflation"]
+        self.mg_opts = dict(self.MG_DEFAULTS, **opts)
+        self.mg_opts["deflation"] = deflation
+        schur = self.mg_opts["schur"]
+        if schur is None:
+            schur = os.environ.get("TURBOMESH_SCHUR", "1") == "1"
+        self._schur = bool(schur)
+        return deflation
 
     def _setup_deflation(self, deflation, block_sizes, N, M, free_mask,
                          l_row):
@@ -797,7 +851,11 @@ class DeviceSmoother:
         mask = levels[0]["interior"][..., None]  # interior + SMOOTHED faces
         v = vflat.reshape(B, N, M, 2)
         zero = _zero(vflat)
+        o = self.mg_opts
         z = v_cycle_glued(levels, torch.where(mask, v, zero),
+                          pre=o["pre"], post=o["post"],
+                          coarse_iters=o["coarse_iters"],
+                          pre_dirs=o["pre_dirs"], post_dirs=o["post_dirs"],
                           glue_fns=ctx["glue_fns"])
         z = torch.where(mask & self._p32["free_mask"], z, zero)
         return z.reshape(-1, 2)
@@ -854,33 +912,43 @@ class DeviceSmoother:
         """Defect-correction iteration of the interface solve: each extra
         pass re-solves the interface on the updated residual, subtracting
         A of the LAST increment, which Gauss-Seidels the junction <->
-        chain <-> sliding coupling one pass alone never resolves."""
+        chain <-> sliding coupling one pass alone never resolves.
+        mg_opts ``interface_passes`` sets the count (default 2)."""
+        n = int(self.mg_opts["interface_passes"])
         z = self._stage_interface(ctx, rr)
+        if n <= 1:
+            return z
         r_c, dz = rr, z
-        for _ in range(INTERFACE_PASSES - 1):
+        for _ in range(n - 1):
             r_c = r_c - self._stage_A32(ctx, dz)
             dz = self._stage_interface(ctx, r_c)
             z = z + dz
         return z
 
     def _stage_Minv(self, ctx, vflat):
-        """f32 preconditioner: an approximate EXACT ELIMINATION (Schur
-        composition) of the interface unknowns:
+        """f32 preconditioner. With mg_opts ``schur`` (the default) an
+        approximate EXACT ELIMINATION (Schur composition) of the interface
+        unknowns:
           e  = A_JJ^-1 v_J          (_stage_interface)
           z  = V(v - A e)           (the correction glue already makes the
                                      V-cycle's operator the Schur
                                      complement; this adds its rhs)
           rr = v - A (z + e)
           M^-1 v = z + e + interface_passes(rr)
+        Without it the base composition, the V-cycle then the interface:
+          z  = V(v),  rr = v - A z,  M^-1 v = z + interface_passes(rr)
         With deflation on, the coarse-space solve goes first
         (_defl_apply): the composition runs on v - t A z0, and t z0 is
         added to its result."""
         z0 = None
         if "defl" in ctx:
             z0, vflat = self._defl_apply(ctx, vflat)
-        e = self._stage_interface(ctx, vflat)
-        ze = self._stage_vcycle_interior(
-            ctx, vflat - self._stage_A32(ctx, e)) + e
+        if self._schur:
+            e = self._stage_interface(ctx, vflat)
+            ze = self._stage_vcycle_interior(
+                ctx, vflat - self._stage_A32(ctx, e)) + e
+        else:
+            ze = self._stage_vcycle_interior(ctx, vflat)
         rr = vflat - self._stage_A32(ctx, ze)
         if z0 is None:
             return ze + self._interface_passes(ctx, rr)
@@ -1005,8 +1073,11 @@ class DeviceSmoother:
         # they run at the full instance rtol. Fixed-iteration runs (the
         # reference's own semantics, smooth.zig:104) keep the fixed
         # tolerance, and so does every run of a class without
-        # ``adaptive_forcing``.
-        adaptive = self.adaptive_forcing and target_residual is not None
+        # ``adaptive_forcing``, with mg_opts ``adaptive_rtol`` False or with
+        # TURBOMESH_ADAPTIVE_RTOL=0.
+        adaptive = (self.adaptive_forcing and target_residual is not None
+                    and bool(self.mg_opts["adaptive_rtol"])
+                    and os.environ.get("TURBOMESH_ADAPTIVE_RTOL", "1") != "0")
         eta_loose = max(self.rtol, 1e-2)
         #: per-iteration linear-solve tolerances of the last run()
         self.last_run_rtols = []

@@ -24,12 +24,6 @@ from ..ops.zebra import zebra_half_sweep
 #: transfer-map field names for boundary-aligned (non-stride-2) levels
 MAP_KEYS = ("li_map", "lj_map", "pi_lo", "pi_w", "pj_lo", "pj_w")
 
-#: V-cycle schedule: smooths before and after the coarse correction on each
-#: level, and smooths on the coarsest level
-PRE_SMOOTH = 1
-POST_SMOOTH = 1
-COARSE_ITERS = 4
-
 
 def _last_unique(dst: np.ndarray) -> np.ndarray:
     """Sorted positions of the LAST occurrence of each value of ``dst``.
@@ -258,16 +252,21 @@ def _apply_glued(level, v, glue_fn=None):
                        torch.zeros((), dtype=out.dtype, device=out.device))
 
 
-def _smooth_glued(level, r, z, glue_fn=None):
-    """Zebra line relaxation over the glued mesh: for each direction (lines
-    along i colored by j parity, then lines along j colored by i parity)
-    and each color, glue the correction, then one zebra half-sweep
-    (residual + line solve + colored update) on the ghost-framed planes."""
+def _smooth_glued(level, r, z, directions="ij", glue_fn=None):
+    """Zebra line relaxation over the glued mesh: for each direction in
+    ``directions`` ("i": lines along i colored by j parity, then "j":
+    lines along j colored by i parity; "ij" runs both, "i" or "j" one at
+    half the cost) and each color, glue the correction, then one zebra
+    half-sweep (residual + line solve + colored update) on the
+    ghost-framed planes."""
     zb = level["zebra"]
     rx = _pad1(r[..., 0]).contiguous()
     ry = _pad1(r[..., 1]).contiguous()
-    passes = [(zb["li"], 0, zb["sel_j"][0]), (zb["li"], 0, zb["sel_j"][1]),
-              (zb["lj"], 1, zb["sel_i"][0]), (zb["lj"], 1, zb["sel_i"][1])]
+    passes = []
+    if "i" in directions:  # lines along i, each color of j parity
+        passes += [(zb["li"], 0, sel) for sel in zb["sel_j"]]
+    if "j" in directions:  # lines along j, each color of i parity
+        passes += [(zb["lj"], 1, sel) for sel in zb["sel_i"]]
     mask = level["interior"][..., None]
     zero = torch.zeros((), dtype=r.dtype, device=r.device)
     for (dl, d, du), axis, sel in passes:
@@ -359,11 +358,24 @@ def _restrict_glued(level, r, coarse, glue_fn=None):
             + (at(1, 1) + at(1, -1) + at(-1, 1) + at(-1, -1))) / 16.0
 
 
-def v_cycle_glued(levels, r, level_idx=0, glue_fns=None):
-    """Glued multigrid V-cycle (recursion over the level list): PRE_SMOOTH
-    and POST_SMOOTH alternating-direction smooths per level, COARSE_ITERS
-    on the coarsest. glue_fns: per-level glue callables of the sharded
-    path (build_glued_levels), None for the levels' own glue maps."""
+def vcycle_half_sweeps(n_levels, pre=1, post=1, coarse_iters=4,
+                       pre_dirs="ij", post_dirs="ij"):
+    """The zebra half-sweeps (kernel launches) of one v_cycle_glued call on
+    ``n_levels`` levels: two colors a direction, the smooths of the
+    schedule on every level above the coarsest, ``coarse_iters``
+    alternating ("ij") smooths on the coarsest."""
+    return (2 * (n_levels - 1) * (pre * len(pre_dirs) + post * len(post_dirs))
+            + 4 * coarse_iters)
+
+
+def v_cycle_glued(levels, r, level_idx=0, pre=1, post=1, coarse_iters=4,
+                  pre_dirs="ij", post_dirs="ij", glue_fns=None):
+    """Glued multigrid V-cycle (recursion over the level list): ``pre``
+    smooths over ``pre_dirs`` before the coarse correction on each level
+    and ``post`` over ``post_dirs`` after it, ``coarse_iters`` alternating
+    ("ij") smooths on the coarsest. glue_fns: per-level glue callables of
+    the sharded path (build_glued_levels), None for the levels' own glue
+    maps."""
     level = levels[level_idx]
     gfn = None if glue_fns is None else glue_fns[level_idx]
     mask = level["interior"][..., None]
@@ -372,18 +384,19 @@ def v_cycle_glued(levels, r, level_idx=0, glue_fns=None):
     z = torch.zeros_like(r)
 
     if level_idx == len(levels) - 1:
-        for _ in range(COARSE_ITERS):
-            z = _smooth_glued(level, r, z, gfn)
+        for _ in range(coarse_iters):
+            z = _smooth_glued(level, r, z, glue_fn=gfn)
         return z
 
-    for _ in range(PRE_SMOOTH):
-        z = _smooth_glued(level, r, z, gfn)
+    for _ in range(pre):
+        z = _smooth_glued(level, r, z, pre_dirs, glue_fn=gfn)
 
     res = torch.where(mask, r - _apply_glued(level, z, gfn), zero)
     coarse = levels[level_idx + 1]
     # undivided stencils scale as h^4, so A_c ~ 16 A_f on smooth modes
     rc = 16.0 * _restrict_glued(level, res, coarse, gfn)
-    zc = v_cycle_glued(levels, rc, level_idx + 1, glue_fns)
+    zc = v_cycle_glued(levels, rc, level_idx + 1, pre, post, coarse_iters,
+                       pre_dirs, post_dirs, glue_fns)
     if coarse.get("pi_lo") is not None:
         zf = _prolong_mapped(zc, tuple(level["interior"].shape),
                              coarse["pi_lo"], coarse["pi_w"],
@@ -392,6 +405,6 @@ def v_cycle_glued(levels, r, level_idx=0, glue_fns=None):
         zf = _prolong(zc, tuple(level["interior"].shape))
     z = z + torch.where(mask, zf, zero)
 
-    for _ in range(POST_SMOOTH):
-        z = _smooth_glued(level, r, z, gfn)
+    for _ in range(post):
+        z = _smooth_glued(level, r, z, post_dirs, glue_fn=gfn)
     return z
