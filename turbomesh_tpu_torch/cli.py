@@ -3,7 +3,9 @@
 The options of ``turbomesh`` (reference parity: src/gui/cmd.zig +
 src/gui/main.zig; exit codes 64 usage error, 66 cannot open input) plus
 ``--device``: the torch device of the ``device`` solver. The default is
-``cuda``, and it raises when no CUDA device is present.
+``cuda``, and it raises when no CUDA device is present. ``--trace DIR``
+writes a Chrome trace of the smoothing (``DIR/trace.json``, with the
+program's ``turbomesh.*`` ranges) and prints the tree of its spans.
 
 Under ``torchrun --nproc-per-node N`` with ``--solver sharded`` (or
 ``device``, which then shards) every rank builds the mesh and smooths its
@@ -47,6 +49,9 @@ def main(argv=None) -> int:
                    help="resume smoothing from --checkpoint")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="torch device of the device solver (default cuda)")
+    p.add_argument("--trace", metavar="DIR", default=None,
+                   help="write a Chrome trace of the smoothing to "
+                        "DIR/trace.json and print the spans' tree")
     p.add_argument("--version", action="version",
                    version="turbomesh-tpu-torch 0.1.0")
     args = p.parse_args(argv)
@@ -71,10 +76,13 @@ def main(argv=None) -> int:
 
     from . import input as input_mod
     from .check import check_connections
+    from .profiling import PhaseTimer, torch_trace
 
+    timer = PhaseTimer()
     base_dir = args.base_dir or os.path.dirname(os.path.abspath(args.config))
     try:
-        inp = input_mod.load(args.config, base_dir=base_dir)
+        with timer.active():
+            inp = input_mod.load(args.config, base_dir=base_dir)
     except FileNotFoundError as e:
         print(f"error: {e}", file=sys.stderr)
         return 66
@@ -83,7 +91,8 @@ def main(argv=None) -> int:
         return 64
 
     t0 = time.perf_counter()
-    mesh = inp.template.run(inp.geometry)
+    with timer.active():
+        mesh = inp.template.run(inp.geometry)
     say(f"blocking: {len(mesh.blocks)} blocks, {mesh.num_points} points "
           f"({time.perf_counter() - t0:.2f} s)")
     check_connections(mesh)
@@ -94,17 +103,22 @@ def main(argv=None) -> int:
         from .smoothing import smooth_mesh
 
         t0 = time.perf_counter()
-        smooth_mesh(
-            mesh,
-            iterations=iterations,
-            solver=args.solver or inp.smoothing.solver,
-            wall_control_function=inp.smoothing.wall_control_function,
-            target_residual=args.target_residual,
-            checkpoint_path=args.checkpoint,
-            resume=args.resume,
-            device=args.device,
-        )
+        with torch_trace(args.trace if lead else None):
+            smooth_mesh(
+                mesh,
+                iterations=iterations,
+                solver=args.solver or inp.smoothing.solver,
+                wall_control_function=inp.smoothing.wall_control_function,
+                target_residual=args.target_residual,
+                checkpoint_path=args.checkpoint,
+                resume=args.resume,
+                timer=timer,
+                device=args.device,
+            )
         say(f"elapsed time for smoothing: {time.perf_counter() - t0:.2f} s")
+        if args.trace:
+            say(timer.report(nodes=mesh.num_points))
+            say(f"wrote {os.path.join(args.trace, 'trace.json')}")
 
     if own_group and dist.is_initialized():
         dist.destroy_process_group()

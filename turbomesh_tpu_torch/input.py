@@ -17,6 +17,7 @@ import numpy as np
 
 from .types import Float, as_points
 from .machine import Profile, Geometry
+from .profiling import span
 from . import templates as templates_mod
 
 
@@ -106,39 +107,43 @@ def create_profile(profile_cfg: dict, scale: float = 1.0, base_dir: str = ".") -
 
 def load(path_or_dict, base_dir: str | None = None) -> Input:
     """Load a run configuration from a JSON file path or a parsed dict."""
-    if isinstance(path_or_dict, (str, os.PathLike)):
-        if base_dir is None:
-            # reference resolves csv paths relative to the CWD; we default to
-            # the config file's directory unless paths resolve from CWD
-            base_dir = "."
-        with open(path_or_dict) as f:
-            cfg = json.load(f)
-    else:
-        cfg = path_or_dict
-        if base_dir is None:
-            base_dir = "."
+    with span("load"):
+        if isinstance(path_or_dict, (str, os.PathLike)):
+            if base_dir is None:
+                # reference resolves csv paths relative to the CWD; we
+                # default to the config file's directory unless paths
+                # resolve from CWD
+                base_dir = "."
+            with open(path_or_dict) as f:
+                cfg = json.load(f)
+        else:
+            cfg = path_or_dict
+            if base_dir is None:
+                base_dir = "."
 
-    geo = cfg["geometry"]
-    scale = geo.get("scale", 1.0)
-    profile = create_profile(geo["profile"], scale=scale, base_dir=base_dir)
+        geo = cfg["geometry"]
+        scale = geo.get("scale", 1.0)
+        profile = create_profile(geo["profile"], scale=scale,
+                                 base_dir=base_dir)
 
-    sm = cfg.get("smoothing", {})
-    smoothing = SmoothingConfig(
-        iterations=sm.get("iterations", 0),
-        solver=sm.get("solver", "jacobi_cg"),
-        wall_control_function=sm.get("wall_control_function", "laplace"),
-    )
+        sm = cfg.get("smoothing", {})
+        smoothing = SmoothingConfig(
+            iterations=sm.get("iterations", 0),
+            solver=sm.get("solver", "jacobi_cg"),
+            wall_control_function=sm.get("wall_control_function", "laplace"),
+        )
 
-    return Input(
-        template=templates_mod.from_config(cfg["template"]),
-        smoothing=smoothing,
-        # the reference scales the pitch by the geometry scale factor
-        # along with the profile (gui/main.zig:45, wasm/lib.zig:41:
-        # Geometry.init(input.geometry.scale * input.geometry.pitch, ..));
-        # LS89's mm-coordinates (scale 1e-3, pitch 57.5) are inconsistent
-        # without it — pitch 1600x chord — and White smoothing diverges
-        pitch=Float(geo["pitch"]) * Float(scale),
-        profile=profile,
-        output=cfg.get("output"),
-        gui=cfg.get("gui"),
-    )
+        return Input(
+            template=templates_mod.from_config(cfg["template"]),
+            smoothing=smoothing,
+            # the reference scales the pitch by the geometry scale factor
+            # along with the profile (gui/main.zig:45, wasm/lib.zig:41:
+            # Geometry.init(input.geometry.scale * input.geometry.pitch,
+            # ..)); LS89's mm-coordinates (scale 1e-3, pitch 57.5) are
+            # inconsistent without it — pitch 1600x chord — and White
+            # smoothing diverges
+            pitch=Float(geo["pitch"]) * Float(scale),
+            profile=profile,
+            output=cfg.get("output"),
+            gui=cfg.get("gui"),
+        )

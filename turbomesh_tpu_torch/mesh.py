@@ -16,6 +16,7 @@ from .types import Float
 from .edge import Edge
 from .boundary import Connection, Condition
 from . import tfi as tfi_mod
+from .profiling import span
 
 
 @dataclasses.dataclass
@@ -27,16 +28,17 @@ class Block2d:
         """Fill the block by boundary-blended TFI (discrete.zig:142-159)."""
         assert len(i_min) == len(i_max)
         assert len(j_min) == len(j_max)
-        pts = tfi_mod.blended_tfi_np(
-            i_min.points,
-            i_max.points,
-            j_min.points,
-            j_max.points,
-            i_min.clustering,
-            i_max.clustering,
-            j_min.clustering,
-            j_max.clustering,
-        )
+        with span("template.tfi"):
+            pts = tfi_mod.blended_tfi_np(
+                i_min.points,
+                i_max.points,
+                j_min.points,
+                j_max.points,
+                i_min.clustering,
+                i_max.clustering,
+                j_min.clustering,
+                j_max.clustering,
+            )
         return Block2d(points=np.asarray(pts, dtype=Float))
 
     @property

@@ -33,6 +33,7 @@ import os
 import numpy as np
 import torch
 
+from ..profiling import span
 from .classify import BoundaryInfo, Kind
 
 log = logging.getLogger("turbomesh.smoothing")
@@ -433,7 +434,8 @@ class DeviceSmoother:
         from .multigrid import prep_glue_arrays
 
         self.device = torch.device(device)
-        self.plan = build_plan(mesh, info)
+        with span("solver_setup.plan"):
+            self.plan = build_plan(mesh, info)
         self._mesh = mesh
         self.rtol = rtol
         self.atol = atol
@@ -447,7 +449,8 @@ class DeviceSmoother:
         #: range in the whole stack
         self._shape = (p.B, p.N, p.M)
         self._lo, self._hi = 0, p.B
-        tens = plan_tensors(p, self.device)
+        with span("solver_setup.upload"):
+            tens = plan_tensors(p, self.device)
         self._p64 = tens["p64"]
         self._p32 = tens["p32"]
         # STORAGE-frame block extents (transposed blocks store (nj, ni))
@@ -460,10 +463,11 @@ class DeviceSmoother:
         # whose lattice length goes even keep their far boundary at every
         # level (plain [::2] moves the coarse Dirichlet up to 2^level
         # cells inside the block)
-        glue = build_glue(mesh, info, p.N, p.M,
-                          n_levels=self.mg_opts["n_levels"],
-                          transposed=p.transposed, keep_boundaries=True)
-        self._glue_dev = prep_glue_arrays(glue, self.device)
+        with span("solver_setup.glue"):
+            glue = build_glue(mesh, info, p.N, p.M,
+                              n_levels=self.mg_opts["n_levels"],
+                              transposed=p.transposed, keep_boundaries=True)
+            self._glue_dev = prep_glue_arrays(glue, self.device)
         self.last_linear_residual = float("nan")
         self.last_linear_converged = False
         self.last_restarts = 0
@@ -754,8 +758,9 @@ class DeviceSmoother:
         """f32 linear operator application."""
         B, N, M = self._shape
         baseF32 = ctx["baseF32"]
-        return self._apply(baseF32.reshape(B, N, M, 2), baseF32, ctx["cf32"],
-                           v, 0.0, G=ctx["G"], cG=ctx["cG"])
+        with span("precond.residual"):
+            return self._apply(baseF32.reshape(B, N, M, 2), baseF32,
+                               ctx["cf32"], v, 0.0, G=ctx["G"], cG=ctx["cG"])
 
     # -- coarse-space deflation (implicit per-block bilinear basis) ----------
     #
@@ -829,16 +834,17 @@ class DeviceSmoother:
         scaled by the weighted least-squares step t = <D^2 v, A z0> /
         <D^2 A z0, A z0> (D = 1/|diag|, f32 dots: t is a safeguard, three
         digits do), which guarantees ||D (v - t A z0)|| <= ||D v||."""
-        dfl = ctx["defl"]
-        rhs = self._defl_Wt(vflat).to(torch.float64) * dfl["D"]
-        alpha = dfl["D"] * torch.linalg.lu_solve(
-            dfl["LU"], dfl["piv"], rhs[:, None])[:, 0]
-        z0 = self._defl_W(alpha.to(torch.float32))
-        Az0 = self._stage_A32(ctx, z0)
-        w = 1.0 / ctx["diag"].reshape(-1, 2)
-        wA = w * Az0
-        t = self._dot(w * vflat, wA) / (self._dot(wA, wA) + 1e-30)
-        return t * z0, vflat - t * Az0
+        with span("precond.deflation"):
+            dfl = ctx["defl"]
+            rhs = self._defl_Wt(vflat).to(torch.float64) * dfl["D"]
+            alpha = dfl["D"] * torch.linalg.lu_solve(
+                dfl["LU"], dfl["piv"], rhs[:, None])[:, 0]
+            z0 = self._defl_W(alpha.to(torch.float32))
+            Az0 = self._stage_A32(ctx, z0)
+            w = 1.0 / ctx["diag"].reshape(-1, 2)
+            wA = w * Az0
+            t = self._dot(w * vflat, wA) / (self._dot(wA, wA) + 1e-30)
+            return t * z0, vflat - t * Az0
 
     def _stage_vcycle_interior(self, ctx, vflat):
         """f32 glued multigrid V-cycle: block interiors + SMOOTHED
@@ -846,19 +852,21 @@ class DeviceSmoother:
         every level)."""
         from .multigrid import v_cycle_glued
 
-        B, N, M = self._shape
-        levels = ctx["mg"]
-        mask = levels[0]["interior"][..., None]  # interior + SMOOTHED faces
-        v = vflat.reshape(B, N, M, 2)
-        zero = _zero(vflat)
-        o = self.mg_opts
-        z = v_cycle_glued(levels, torch.where(mask, v, zero),
-                          pre=o["pre"], post=o["post"],
-                          coarse_iters=o["coarse_iters"],
-                          pre_dirs=o["pre_dirs"], post_dirs=o["post_dirs"],
-                          glue_fns=ctx["glue_fns"])
-        z = torch.where(mask & self._p32["free_mask"], z, zero)
-        return z.reshape(-1, 2)
+        with span("precond.vcycle"):
+            B, N, M = self._shape
+            levels = ctx["mg"]
+            # interior + SMOOTHED faces
+            mask = levels[0]["interior"][..., None]
+            v = vflat.reshape(B, N, M, 2)
+            zero = _zero(vflat)
+            o = self.mg_opts
+            z = v_cycle_glued(levels, torch.where(mask, v, zero),
+                              pre=o["pre"], post=o["post"],
+                              coarse_iters=o["coarse_iters"],
+                              pre_dirs=o["pre_dirs"], post_dirs=o["post_dirs"],
+                              glue_fns=ctx["glue_fns"])
+            z = torch.where(mask & self._p32["free_mask"], z, zero)
+            return z.reshape(-1, 2)
 
     def _stage_interface(self, ctx, vflat):
         """f32 interface solve: connection-chain tridiagonal solves +
@@ -869,44 +877,45 @@ class DeviceSmoother:
         two passes resolve neighbour-sliding chains."""
         from .krylov import thomas
 
-        p32 = self._p32
-        B, N, M = self._shape
-        diag_field = ctx["diag"]
-        zero = _zero(vflat)
-        one = torch.ones((), dtype=vflat.dtype, device=vflat.device)
+        with span("precond.interface"):
+            p32 = self._p32
+            B, N, M = self._shape
+            diag_field = ctx["diag"]
+            zero = _zero(vflat)
+            one = torch.ones((), dtype=vflat.dtype, device=vflat.device)
 
-        v = vflat.reshape(B, N, M, 2)
-        interior = p32["interior_mask"][..., None]
-        inv_diag = 1.0 / torch.where(diag_field == 0.0, one, diag_field)
-        z = torch.where(interior, zero, v * inv_diag)
-        z = torch.where(p32["free_mask"], z, zero)
-        zf = z.reshape(-1, 2)
+            v = vflat.reshape(B, N, M, 2)
+            interior = p32["interior_mask"][..., None]
+            inv_diag = 1.0 / torch.where(diag_field == 0.0, one, diag_field)
+            z = torch.where(interior, zero, v * inv_diag)
+            z = torch.where(p32["free_mask"], z, zero)
+            zf = z.reshape(-1, 2)
 
-        c_row = p32["c_row"]
-        if c_row.shape[0]:
-            ch_l, ch_d, ch_u = ctx["chain"]
-            c_seg, vmask = p32["c_seg"], p32["c_seg_valid"]
-            seg_dl = torch.where(vmask, ch_l[c_seg], zero)
-            seg_d = torch.where(vmask, ch_d[c_seg], one)
-            seg_du = torch.where(vmask, ch_u[c_seg], zero)
-            rhs = torch.where(vmask[..., None], vflat[c_row[c_seg]], zero)
-            sol = thomas(seg_dl, seg_d, seg_du, rhs)
-            # the valid chain entries are the connection rows, each once
-            pos = p32["c_seg_pos"]
-            rows = c_row[c_seg.reshape(-1)[pos]]
-            cur = zf[rows]
-            upd = sol.reshape(-1, 2)[pos] - cur
-            zf = zf.index_copy(0, rows, cur + upd)
+            c_row = p32["c_row"]
+            if c_row.shape[0]:
+                ch_l, ch_d, ch_u = ctx["chain"]
+                c_seg, vmask = p32["c_seg"], p32["c_seg_valid"]
+                seg_dl = torch.where(vmask, ch_l[c_seg], zero)
+                seg_d = torch.where(vmask, ch_d[c_seg], one)
+                seg_du = torch.where(vmask, ch_u[c_seg], zero)
+                rhs = torch.where(vmask[..., None], vflat[c_row[c_seg]], zero)
+                sol = thomas(seg_dl, seg_d, seg_du, rhs)
+                # the valid chain entries are the connection rows, each once
+                pos = p32["c_seg_pos"]
+                rows = c_row[c_seg.reshape(-1)[pos]]
+                cur = zf[rows]
+                upd = sol.reshape(-1, 2)[pos] - cur
+                zf = zf.index_copy(0, rows, cur + upd)
 
-        s_row = p32["s_row"]
-        if s_row.shape[0]:
-            s_nb = p32["s_nb"]
-            for _ in range(2):
-                zy = vflat[s_row, 1] + zf[s_nb, 1]
-                zf = zf.index_copy(0, s_row, torch.stack([zf[s_row, 0], zy],
-                                                         dim=-1))
-            zf = torch.where(p32["free_mask"].reshape(-1, 2), zf, zero)
-        return zf
+            s_row = p32["s_row"]
+            if s_row.shape[0]:
+                s_nb = p32["s_nb"]
+                for _ in range(2):
+                    zy = vflat[s_row, 1] + zf[s_nb, 1]
+                    zf = zf.index_copy(
+                        0, s_row, torch.stack([zf[s_row, 0], zy], dim=-1))
+                zf = torch.where(p32["free_mask"].reshape(-1, 2), zf, zero)
+            return zf
 
     def _interface_passes(self, ctx, rr):
         """Defect-correction iteration of the interface solve: each extra
@@ -964,8 +973,9 @@ class DeviceSmoother:
         FGMRES restart cycles it took go to ``last_restarts``."""
         from .krylov import restarted_fgmres
 
-        base, b = self._stage_base(Xpad, cf_pad)
-        ctx = self._stage_prepare32(base, cf_pad)
+        with span("solve.prepare"):
+            base, b = self._stage_base(Xpad, cf_pad)
+            ctx = self._stage_prepare32(base, cf_pad)
         free64 = self._p64["free_mask"].reshape(-1, 2)
 
         # equilibrated iteration: FGMRES minimizes the row-scaled residual,
@@ -976,12 +986,14 @@ class DeviceSmoother:
         inv_row = 1.0 / row_diag
 
         def A_s(v):
-            return inv_row * self._stage_apply64(base, cf_pad, v,
-                                                 cG=ctx["cG64"])
+            with span("fgmres.operator"):
+                return inv_row * self._stage_apply64(base, cf_pad, v,
+                                                     cG=ctx["cG64"])
 
         def M_s(v):
-            v32 = (row_diag * v).to(torch.float32)
-            return self._stage_Minv(ctx, v32).to(torch.float64)
+            with span("precond"):
+                v32 = (row_diag * v).to(torch.float32)
+                return self._stage_Minv(ctx, v32).to(torch.float64)
 
         b_s = inv_row * b
         tol2 = torch.clamp(rtol * self._norm(b), min=self.atol)
@@ -1029,7 +1041,8 @@ class DeviceSmoother:
         from .krylov import _warn_nonconverged
 
         X, C = self._upload(coords, cf)
-        X1, stats = self._solve_impl(X, C, self.rtol)
+        with span("picard.solve"):
+            X1, stats = self._solve_impl(X, C, self.rtol)
         rn, ok, _ = stats.tolist()
         if not ok:
             _warn_nonconverged("device fgmres",
@@ -1092,13 +1105,16 @@ class DeviceSmoother:
         for n in range(start_iteration, iterations):
             log.info("iteration: %d", n)
             if n > 0 and upd is not None:
-                C = upd(X, C)
+                with span("picard.update"):
+                    C = upd(X, C)
             eta = self.rtol
             if adaptive and disp > target_residual * 1e6:
                 eta = eta_loose
             self.last_run_rtols.append(eta)
-            X, stats = self._solve_impl(X, C, eta)
-            rn, ok, disp = stats.tolist()  # one read per iteration
+            with span("picard.solve"):
+                X, stats = self._solve_impl(X, C, eta)
+            with span("picard.read"):
+                rn, ok, disp = stats.tolist()  # one read per iteration
             if not ok:
                 _warn_nonconverged("device fgmres",
                                    self.restart * self.max_restarts, rn,
@@ -1106,6 +1122,8 @@ class DeviceSmoother:
             self.last_linear_residual = rn
             self.last_linear_converged = bool(ok)
             log.info("\tresidual: %.6e", disp)
+            # in this frame, with the stack as the local X: a caller's
+            # list may read the iteration's coordinates from it
             if residual_history is not None:
                 residual_history.append(disp)
             if restart_history is not None:

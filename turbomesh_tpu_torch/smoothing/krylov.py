@@ -17,6 +17,8 @@ import logging
 import numpy as np
 import torch
 
+from ..profiling import span
+
 log = logging.getLogger("turbomesh.krylov")
 
 
@@ -84,13 +86,16 @@ def restarted_fgmres(A, b, M_inv, dot, rtol, atol, restart, max_restarts,
     rn = torch.full((), float("inf"), dtype=b.dtype, device=b.device)
     i = 0
     while i < max_restarts:
-        x, r, rn = fgmres_one_cycle(A, b, M_inv, dot, restart, x)
+        with span("fgmres.cycle"):
+            x, r, rn = fgmres_one_cycle(A, b, M_inv, dot, restart, x)
         i += 1
         live = rn > tol
         if w2 is not None:
             rn2 = torch.sqrt(dot(w2 * r, w2 * r))
             live = torch.logical_and(live, rn2 > tol2)
-        if not bool(live):
+        with span("fgmres.stop_test"):
+            live = bool(live)
+        if not live:
             break
     if return_restarts:
         return x, rn, i

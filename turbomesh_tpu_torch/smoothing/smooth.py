@@ -91,6 +91,8 @@ def smooth_mesh(mesh, iterations: int, solver="direct",
     restores from checkpoint_path and continues from the saved iteration.
     target_residual: stop early once the displacement-norm residual drops
     below this value (run-to-convergence mode; `iterations` is the cap).
+    timer: the ``profiling.PhaseTimer`` that records the phases and the
+    spans inside them (a new one when None); its tree is logged at the end.
     device: torch device of the "device" and "sharded" backends (ignored
     by the host backends); under "sharded", "cuda" is rank r's card
     ``cuda:{local_rank % device_count}`` and a missing process group is

@@ -36,6 +36,7 @@ from ..edge import Edge, EdgeView
 from ..geometry import Line
 from ..machine import Geometry
 from ..mesh import Block2d, Mesh
+from ..profiling import span
 from ..boundary import Side, Range, Connection, Condition, BCKind
 
 # O-grid wall offset distance (O4H.zig:102) and wall-normal first-cell
@@ -81,7 +82,12 @@ class O4H:
             wall_delta_s=cfg.get("wall_delta_s", O_GRID_WALL_DELTA_S),
         )
 
-    def run(self, geom: Geometry) -> Mesh:  # noqa: C901 — mirrors O4H.zig:67-528
+    def run(self, geom: Geometry) -> Mesh:
+        """The blocked mesh of ``geom``, each block filled by TFI."""
+        with span("template"):
+            return self._run(geom)
+
+    def _run(self, geom: Geometry) -> Mesh:  # noqa: C901 — mirrors O4H.zig:67-528
         nc = self.num_cells
         num_cells_up = nc.in_up_j + nc.middle_i + nc.bulge + nc.out_up_j + nc.out_i
         num_cells_down = nc.in_down_j + nc.middle_i + nc.out_down_j
