@@ -7,7 +7,8 @@
 Phases (each prints its result and wall time on its own line):
   0. environment: card name and power limit, torch and CUDA versions;
      TF32 off for matmuls and cuDNN.
-  1. build the three kernels (csrc/probe.cu, zebra.cu, sor.cu) with nvcc,
+  1. build the four kernels (csrc/probe.cu, zebra.cu, sor.cu, chain.cu)
+     with nvcc,
      all at once (ptxas's registers and spills printed), then launch the
      probe first: its output must be exactly i + 1. Its time a call is
      printed beside torch.add's on the same tile, with the host cost of
@@ -96,6 +97,21 @@ Phases (each prints its result and wall time on its own line):
      world 1, the T106 Laplace solve at rtol 1e-15, undeflated in the
      Schur and then the base composition, each within 1e-10 of the host
      oracle, the restarts beside 10(b)'s deflated ones.
+ 12. the interface solve's chain kernel K-I (csrc/chain.cu): (a) on the
+     T106 plan's chain table with its coefficients and a seeded
+     right-hand side and field, the kernel against the plain version
+     (ops/chain.py chain_solve_ref) on the same tensors, bit for bit, with
+     one CHAIN_LAUNCHES a call; its time a call (median of 11 runs of
+     CHAIN_RUN back-to-back calls between CUDA events), its device time in
+     a CUDA graph, the plain version's time and the bound; (b) T106 through
+     smooth_mesh(..., solver="device") for its 10 White iterations twice,
+     the interface's chain solve routed to the plain version and then
+     through the kernel: final coordinates equal bit for bit, the same
+     zebra launches, CHAIN_LAUNCHES 0 and CHAIN_LEN_T106 (63 an
+     iteration), the walls, the interface span's seconds an iteration and
+     K-I's run's split by span (P12_SPANS) printed. Phases 8(b), 10(a)
+     and 11(a) check that the sharded ranks, the deflated solves and the
+     option solves launched K-I.
 
 Times: a call's time is a run of back-to-back calls between two CUDA
 events over the count, median of several runs (cuda_time_ms); the window
@@ -222,6 +238,20 @@ ZEBRA_FLOPS_PER_POINT = 88
 # then updates x and y (2 x (stencil 17 + update 2) = 38)
 SOR_FLOPS_SETUP = 33
 SOR_FLOPS_PER_SWEEP = 38
+# phase 12: back-to-back kernel calls a timing run; the kernel's launches
+# over T106's 10 White iterations (3 interface solves in each of 21
+# preconditioner applications an iteration)
+CHAIN_RUN = 200
+CHAIN_LEN_T106 = 630
+# flops a table point of one chain call (csrc/chain.cu): the forward step
+# (2 multiplies, 3 subtracts, 3 divides) and the back substitution for x
+# and y (2 multiplies, 2 subtracts)
+CHAIN_FLOPS_PER_POINT = 12
+# the spans whose seconds an iteration 12(b) prints (PERF.md §3)
+P12_SPANS = ("picard.solve", "solve.prepare", "fgmres.cycle",
+             "fgmres.operator", "precond", "precond.vcycle",
+             "precond.residual", "precond.interface", "fgmres.stop_test",
+             "picard.update", "picard.read")
 
 
 def nvidia_smi() -> str:
@@ -352,11 +382,11 @@ def mg_option_solves(mesh, cf, device, sync):
     ``cf`` by a DeviceSmoother on ``device`` with the default options and
     with each of MG_CONFIGS. ``sync()`` waits for the device. Returns per
     config (name, the opts, the glued levels, the restarts, the zebra
-    launches measured and predicted, seconds, max |delta| vs the default
-    solve, converged)."""
+    launches measured and predicted, the chain-kernel launches, seconds,
+    max |delta| vs the default solve, converged)."""
     import numpy as np
 
-    from turbomesh_tpu_torch.ops import zebra
+    from turbomesh_tpu_torch.ops import chain, zebra
     from turbomesh_tpu_torch.smoothing.classify import classify
     from turbomesh_tpu_torch.smoothing.device import DeviceSmoother
 
@@ -367,7 +397,7 @@ def mg_option_solves(mesh, cf, device, sync):
                             atol=MG_ATOL, restart=MG_RESTART, mg_opts=opts)
         count_applications(sm)
         sync()
-        zebra.ZEBRA_LAUNCHES = 0
+        zebra.ZEBRA_LAUNCHES = chain.CHAIN_LAUNCHES = 0
         t0 = time.perf_counter()
         coords = sm.solve(mesh.flat_coords(), cf)
         sync()
@@ -375,7 +405,8 @@ def mg_option_solves(mesh, cf, device, sync):
         runs.append(dict(
             name=name, opts=opts, coords=coords, levels=len(sm._glue_dev),
             restarts=sm.last_restarts, launches=zebra.ZEBRA_LAUNCHES,
-            predicted=predicted_launches(sm), seconds=seconds,
+            predicted=predicted_launches(sm), chain=chain.CHAIN_LAUNCHES,
+            seconds=seconds,
             converged=sm.last_linear_converged,
             err=float(np.abs(coords - runs[0]["coords"]).max()) if runs
             else 0.0))
@@ -553,6 +584,14 @@ class Smoke:
                 "name": "probe", "route": "cuda",
                 "source": "turbomesh_tpu_torch/csrc/probe.cu",
                 "replaces": "turbomesh_tpu/ops/zebra.py:297"},
+            # K-I replaces no Pallas kernel: the lax.scan Thomas of the
+            # interface solve
+            "chain_solve": {
+                "name": "chain_solve", "route": "cuda",
+                "source": "turbomesh_tpu_torch/csrc/chain.cu",
+                "replaces": "none (turbomesh_tpu/smoothing/krylov.py:333 "
+                            "lax.scan, as device.py:1072 uses it)",
+                "library_ms": None},
         }
 
     def mesh(self, name):
@@ -598,15 +637,15 @@ class Smoke:
         from concurrent.futures import ThreadPoolExecutor
 
         torch = self.torch
-        from turbomesh_tpu_torch.ops import _build, probe, sor, zebra
+        from turbomesh_tpu_torch.ops import _build, chain, probe, sor, zebra
 
         # one nvcc per source, all started together
         t0 = time.perf_counter()
-        names = ("probe", "zebra", "sor")
+        names = ("probe", "zebra", "sor", "chain")
         with ThreadPoolExecutor(len(names)) as pool:
             paths = list(pool.map(_build.build_library, names))
         t_build = time.perf_counter() - t0
-        for mod in (probe, zebra, sor):
+        for mod in (probe, zebra, sor, chain):
             mod.load_library()
 
         # the probe launches first: o = i + 1, exactly
@@ -1080,7 +1119,9 @@ class Smoke:
             + (f"{r['n_done']} Picard iterations, restarts "
                f"{r['restart_history']}, " if "n_done" in r else
                f"restarts {r['restarts']}, ")
-            + f"{r['zebra_launches']} zebra launches, {r['exchanges']} "
+            + f"{r['zebra_launches']} zebra launches, "
+            f"{r.get('chain_launches', 'no')} chain launches "
+            f"({r.get('chain_rows', '?')} chain rows), {r['exchanges']} "
             f"exchanges and {r['all_reduces']} all_reduces taking "
             f"{r['collective_s']:.2f} s"
             + (f", peak {r['peak_mib']:.1f} MiB" if "peak_mib" in r else "")
@@ -1184,6 +1225,10 @@ class Smoke:
         for r in runs + solves:
             if r["zebra_launches"] <= 0:
                 bad.append(f"(b): rank {r['rank']} launched no zebra kernel")
+            if (r["chain_launches"] > 0) != (r["chain_rows"] > 0):
+                bad.append(f"(b): rank {r['rank']} with {r['chain_rows']} "
+                           f"chain rows launched K-I {r['chain_launches']} "
+                           f"times")
         for r in runs[1:]:
             np.testing.assert_array_equal(r["coords"], runs[0]["coords"])
             np.testing.assert_array_equal(r["cf"], runs[0]["cf"])
@@ -1277,7 +1322,7 @@ class Smoke:
         import numpy as np
 
         torch = self.torch
-        from turbomesh_tpu_torch.ops import zebra
+        from turbomesh_tpu_torch.ops import chain, zebra
         from turbomesh_tpu_torch.smoothing.classify import classify
         from turbomesh_tpu_torch.smoothing.control_function import (
             Laplace, from_config)
@@ -1295,7 +1340,7 @@ class Smoke:
                                  **tol) for m in modes}
         cf = white.init(mesh)
         coords = {m: start for m in modes}
-        stats = {m: dict(restarts=[], launches=0, seconds=0.0)
+        stats = {m: dict(restarts=[], launches=0, chain=0, seconds=0.0)
                  for m in modes}
         for n in range(DEFL_SOLVES):
             if n > 0:
@@ -1303,13 +1348,14 @@ class Smoke:
                 white.update(cf, mesh)
             for m in modes:
                 torch.cuda.synchronize()
-                zebra.ZEBRA_LAUNCHES = 0
+                zebra.ZEBRA_LAUNCHES = chain.CHAIN_LAUNCHES = 0
                 t0 = time.perf_counter()
                 coords[m] = sms[m].solve(coords[m], cf)
                 torch.cuda.synchronize()
                 st = stats[m]
                 st["seconds"] += time.perf_counter() - t0
                 st["launches"] += zebra.ZEBRA_LAUNCHES
+                st["chain"] += chain.CHAIN_LAUNCHES
                 st["restarts"].append(sms[m].last_restarts)
                 if not sms[m].last_linear_converged:
                     bad.append(f"(a) deflation {m}: solve {n} did not "
@@ -1319,13 +1365,15 @@ class Smoke:
             st, sm = stats[m], sms[m]
             if st["launches"] <= 0:
                 bad.append(f"(a) deflation {m}: no zebra launch")
+            if st["chain"] <= 0:
+                bad.append(f"(a) deflation {m}: no K-I launch")
             err = float(np.abs(coords[m] - coords[None]).max())
             if m is not None and not err < DEFL_TOL:
                 bad.append(f"(a) deflation {m}: {err:.3e} from the "
                            f"undeflated solves")
             desc = (f"{m or 'off'}: K {sm._defl_K}, restarts "
                     f"{st['restarts']}, {st['launches']} zebra launches, "
-                    f"{st['seconds']:.2f} s")
+                    f"{st['chain']} K-I launches, {st['seconds']:.2f} s")
             if m is not None:
                 desc += (f", max |delta| vs off {err:.3e} (bar {DEFL_TOL}),"
                          f" Galerkin build {self._galerkin_ms(sm, mesh, start):.2f}"
@@ -1565,13 +1613,15 @@ class Smoke:
             if run["launches"] <= 0 or run["launches"] != run["predicted"]:
                 bad.append(f"(a) {name}: {run['launches']} zebra launches, "
                            f"the schedule predicts {run['predicted']}")
+            if run["chain"] <= 0:
+                bad.append(f"(a) {name}: no K-I launch")
             if run["opts"] is not None and not run["err"] < MG_TOL:
                 bad.append(f"(a) {name}: {run['err']:.3e} from the default "
                            f"solve")
             out.append(f"{name} (L {run['levels']}): restarts "
                        f"{run['restarts']}, {run['launches']} zebra launches "
-                       f"(predicted {run['predicted']}), "
-                       f"{run['seconds']:.2f} s"
+                       f"(predicted {run['predicted']}), {run['chain']} K-I "
+                       f"launches, {run['seconds']:.2f} s"
                        + ("" if run["opts"] is None else
                           f", max |delta| vs default {run['err']:.3e}"))
         return (f"(a) T106 White solve at rtol {MG_RTOL}, atol {MG_ATOL}, "
@@ -1652,11 +1702,143 @@ class Smoke:
                 f"(10(b), deflated y: restarts "
                 f"{self._p10b_restarts or 'not run'}): " + "; ".join(out))
 
+    def p12_chain(self):
+        bad, lines = [], []
+        for part in (self.p12a_kernel, self.p12b_trajectory):
+            t0 = time.perf_counter()
+            line = f"{part(bad)} ({time.perf_counter() - t0:.2f} s)"
+            print("  " + line, flush=True)
+            lines.append(line)
+        if bad:
+            raise AssertionError("; ".join(bad))
+        return "; ".join(lines)
+
+    def p12a_kernel(self, bad):
+        import numpy as np
+
+        torch = self.torch
+        from turbomesh_tpu_torch.ops import chain
+        from turbomesh_tpu_torch.smoothing.classify import classify
+        from turbomesh_tpu_torch.smoothing.control_function import White
+        from turbomesh_tpu_torch.smoothing.device import DeviceSmoother
+
+        mesh = self.mesh("t106")
+        sm = DeviceSmoother(mesh, classify(mesh), device="cuda")
+        cf = White(ds_target=1e-6).init(mesh)
+        X, C = sm._upload(mesh.flat_coords(), cf)
+        base, _ = sm._stage_base(X, C)
+        ctx = sm._stage_prepare32(base, C)
+        p = sm._p32
+        rng = np.random.default_rng(14)
+        P = p["free_mask"].numel() // 2
+        vflat, zf = (torch.as_tensor(rng.standard_normal((P, 2)),
+                                     dtype=torch.float32, device="cuda")
+                     for _ in range(2))
+        # both versions update the field in place: each gets a copy
+        args = (ctx["chain"], p["c_seg"], p["c_seg_valid"], p["c_seg_pos"],
+                p["c_row"], vflat, zf.clone())
+        n0 = chain.CHAIN_LAUNCHES
+        got = chain.chain_solve(*args)
+        calls = chain.CHAIN_LAUNCHES - n0
+        want = chain.chain_solve_ref(*args[:-1], zf.clone())
+        torch.cuda.synchronize()
+        same = (torch.equal(got, want)
+                and torch.equal(got.view(torch.int32), want.view(torch.int32)))
+        if not same or calls != 1:
+            diff = int((got != want).sum())
+            bad.append(f"(a) K-I vs plain on T106: {diff} values differ, "
+                       f"{calls} launches a call")
+        S, L = p["c_seg"].shape
+        nc = int(p["c_row"].shape[0])
+        # bytes of one kernel call: the table's mask, the table and c_row
+        # twice (gather, scatter), the coefficients, the rhs, the field's
+        # rows read and written
+        nbytes = S * L + nc * (2 * 8 + 2 * 8 + 3 * 4 + 8 + 2 * 8)
+        b_ms, b_by = bound_ms(nbytes, CHAIN_FLOPS_PER_POINT * S * L,
+                              "float32")
+        k_ms, k_one = cuda_time_ms(torch, lambda: chain.chain_solve(*args),
+                                   CHAIN_RUN)
+        r_ms, r_one = cuda_time_ms(torch,
+                                   lambda: chain.chain_solve_ref(*args),
+                                   PLAIN_RUN)
+        g_us = graph_us(torch, lambda: chain.chain_solve(*args))
+        self.kernels["chain_solve"].update(
+            max_abs_err=float((got - want).abs().max()), ms=k_ms,
+            plain_ms=r_ms, bound_ms=b_ms, bound_by=b_by)
+        return (f"(a) T106 table ({S}, {L}), {nc} rows: K-I vs plain bit for "
+                f"bit {same}, {calls} launch a call; a call, median of "
+                f"{TIMING_REPS} runs between CUDA events: K-I {k_ms:.5f} ms "
+                f"({CHAIN_RUN} back-to-back; one-call window {k_one:.5f} "
+                f"ms), device {g_us:.3f} us a call in a CUDA graph of 200; "
+                f"plain {r_ms:.4f} ms "
+                f"({PLAIN_RUN} back-to-back; one-call {r_one:.4f} ms); bound "
+                f"{b_ms:.2e} ms ({b_by})")
+
+    def p12b_trajectory(self, bad):
+        import numpy as np
+
+        torch = self.torch
+        from turbomesh_tpu_torch import input as input_mod
+        from turbomesh_tpu_torch.ops import chain, zebra
+        from turbomesh_tpu_torch.profiling import PhaseTimer
+        from turbomesh_tpu_torch.smoothing import smooth_mesh
+
+        kernel = chain.chain_solve
+
+        def job(route):
+            inp = input_mod.load(str(T106), base_dir=str(T106.parent))
+            mesh = inp.template.run(inp.geometry)
+            timer = PhaseTimer()
+            if route == "plain":
+                chain.chain_solve = chain.chain_solve_ref
+            zebra.ZEBRA_LAUNCHES = chain.CHAIN_LAUNCHES = 0
+            t0 = time.perf_counter()
+            try:
+                smooth_mesh(mesh, inp.smoothing.iterations, solver="device",
+                            wall_control_function=(
+                                inp.smoothing.wall_control_function),
+                            timer=timer, device="cuda")
+                torch.cuda.synchronize()
+            finally:
+                chain.chain_solve = kernel
+            n = inp.smoothing.iterations
+            return dict(coords=mesh.flat_coords(),
+                        zebra=zebra.ZEBRA_LAUNCHES,
+                        chain=chain.CHAIN_LAUNCHES,
+                        seconds=time.perf_counter() - t0,
+                        interface=timer.totals["precond.interface"] / n,
+                        picard=timer.totals["picard_loop"] / n,
+                        spans={name: timer.totals.get(name, 0.0) / n
+                               for name in P12_SPANS})
+
+        runs = {route: job(route) for route in ("plain", "kernel")}
+        a, b = runs["plain"], runs["kernel"]
+        self.kernels["chain_solve"]["launches_t106_10_iterations"] = (
+            b["chain"])
+        same = np.array_equal(a["coords"], b["coords"])
+        if not (same and a["zebra"] == b["zebra"] > 0 and a["chain"] == 0
+                and b["chain"] == CHAIN_LEN_T106):
+            bad.append(f"(b) T106 plain vs K-I: coordinates equal {same} "
+                       f"(max |delta| "
+                       f"{float(np.abs(a['coords'] - b['coords']).max()):.3e}"
+                       f"), zebra launches {a['zebra']} / {b['zebra']}, "
+                       f"chain launches {a['chain']} / {b['chain']} (want 0 "
+                       f"/ {CHAIN_LEN_T106})")
+        return (f"(b) T106 smooth_mesh, 10 White iterations, chain solve "
+                f"plain / K-I: final coordinates bit for bit {same}; zebra "
+                f"launches {a['zebra']} / {b['zebra']}; chain launches "
+                f"{a['chain']} / {b['chain']}; wall {a['seconds']:.3f} / "
+                f"{b['seconds']:.3f} s; picard_loop an iteration "
+                f"{a['picard']:.4f} / {b['picard']:.4f} s; precond.interface "
+                f"an iteration {a['interface']:.4f} / {b['interface']:.4f} s; "
+                f"K-I's run, seconds an iteration by span: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in b["spans"].items()))
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11",
-                    help="comma-separated phases to run (default: 0-11)")
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12",
+                    help="comma-separated phases to run (default: 0-12)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -1693,7 +1875,8 @@ def main(argv=None) -> int:
               smoke.p9_stacked_cuts),
              (10, "10 the last modules (deflation, sharded deflation, "
               "torch_trace, service, bulk TFI)", smoke.p10_last_modules),
-             (11, "11 preconditioner options (mg_opts)", smoke.p11_mg_opts)]
+             (11, "11 preconditioner options (mg_opts)", smoke.p11_mg_opts),
+             (12, "12 chain kernel K-I (interface solve)", smoke.p12_chain)]
     for k, name, fn in steps:
         if k in phases:
             smoke.phase(name, fn)

@@ -20,9 +20,10 @@ import numpy as np
 import pytest
 import torch
 
-from turbomesh_tpu_torch.ops import _build, probe, sor, zebra
+from turbomesh_tpu_torch.ops import _build, chain, probe, sor, zebra
 
 from chip_smoke import zebra_inputs
+from test_torch_chain import ragged_table
 
 # A stand-in for cuda_runtime.h: four devices, the current one in a static.
 _FAKE_RUNTIME = """
@@ -137,6 +138,11 @@ def test_cpu_tensors_never_reach_the_launch_path(monkeypatch):
     assert torch.equal(sor.red_black_sor(base, 0 * base, base, mask, 1.5, 2),
                        sor.red_black_sor_ref(base, 0 * base, base, mask, 1.5,
                                              2))
+    ch, p32, vflat, zf = ragged_table(0, [5, 1, 3], P=20)
+    args = (ch, p32["c_seg"], p32["c_seg_valid"], p32["c_seg_pos"],
+            p32["c_row"], vflat)
+    assert torch.equal(chain.chain_solve(*args, zf.clone()),
+                       chain.chain_solve_ref(*args, zf.clone()))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -193,15 +199,20 @@ def test_kernels_launch_on_the_current_stream():
     mask[1:-1, 1:-1] = True
     x0 = base + 0.003 * torch.randn_like(base) * mask[..., None]
     cf = 0.1 * torch.randn_like(base)
+    ch, p32, vflat, zf = ragged_table(3, [39, 149, 9], device="cuda")
+    cargs = (ch, p32["c_seg"], p32["c_seg_valid"], p32["c_seg_pos"],
+             p32["c_row"], vflat)
     launches = {"probe": lambda: [probe.probe(x)],
                 "zebra0": lambda: list(zebra.zebra_half_sweep(*zops, axis=0)),
                 "zebra1": lambda: list(zebra.zebra_half_sweep(*zops, axis=1)),
-                "sor": lambda: [sor.red_black_sor(base, cf, x0, mask, 1.5, 3)]}
+                "sor": lambda: [sor.red_black_sor(base, cf, x0, mask, 1.5, 3)],
+                "chain": lambda: [chain.chain_solve(*cargs, zf.clone())]}
     plain = {"probe": lambda: [probe.probe_ref(x)],
              "zebra0": lambda: list(zebra.zebra_half_sweep_ref(*zops, axis=0)),
              "zebra1": lambda: list(zebra.zebra_half_sweep_ref(*zops, axis=1)),
              "sor": lambda: [sor.red_black_sor_ref(base, cf, x0, mask, 1.5,
-                                                   3)]}
+                                                   3)],
+             "chain": lambda: [chain.chain_solve_ref(*cargs, zf.clone())]}
     # the first launch of a kernel loads its module, which may wait for
     # the whole device (CUDA's lazy loading): load each one first
     for launch in launches.values():

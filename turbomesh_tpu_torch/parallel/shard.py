@@ -744,9 +744,10 @@ def run_tasks(tasks, *, device):
     successive linearized solves at the fixed cf, then one ``run`` of
     ``iterations`` Picard iterations. Returns this rank's records: the
     solutions, the run's result and histories, its seconds, its coarse
-    space's size ``defl_K``, and this rank's zebra launches, exchanges and
-    all_reduces with the host seconds spent in them."""
-    from ..ops import zebra
+    space's size ``defl_K``, this rank's zebra launches, its chain rows and
+    chain-kernel launches, and its exchanges and all_reduces with the host
+    seconds spent in them."""
+    from ..ops import chain, zebra
     from ..smoothing.classify import classify
 
     recs = []
@@ -758,7 +759,8 @@ def run_tasks(tasks, *, device):
         if cuda:
             torch.cuda.synchronize(sm.device)
             torch.cuda.reset_peak_memory_stats(sm.device)
-        zebra.ZEBRA_LAUNCHES = pdist.EXCHANGES = pdist.ALL_REDUCES = 0
+        zebra.ZEBRA_LAUNCHES = chain.CHAIN_LAUNCHES = 0
+        pdist.EXCHANGES = pdist.ALL_REDUCES = 0
         pdist.COLLECTIVE_S = 0.0
         rec = dict(rank=sm.rank, world=sm.world, solves=[], restarts=[],
                    defl_K=sm._defl_K)
@@ -784,6 +786,8 @@ def run_tasks(tasks, *, device):
         rec.update(seconds=time.perf_counter() - t0,
                    converged=sm.last_linear_converged,
                    zebra_launches=zebra.ZEBRA_LAUNCHES,
+                   chain_rows=int(sm._p32["c_row"].shape[0]),
+                   chain_launches=chain.CHAIN_LAUNCHES,
                    exchanges=pdist.EXCHANGES, all_reduces=pdist.ALL_REDUCES,
                    collective_s=pdist.COLLECTIVE_S)
         recs.append(rec)

@@ -875,7 +875,7 @@ class DeviceSmoother:
         correction: the row y_s - y_nb = r solves exactly as z_s = r + z_nb,
         and at BC corners the neighbour is a face/chain row updated above;
         two passes resolve neighbour-sliding chains."""
-        from .krylov import thomas
+        from ..ops.chain import chain_solve
 
         with span("precond.interface"):
             p32 = self._p32
@@ -891,21 +891,8 @@ class DeviceSmoother:
             z = torch.where(p32["free_mask"], z, zero)
             zf = z.reshape(-1, 2)
 
-            c_row = p32["c_row"]
-            if c_row.shape[0]:
-                ch_l, ch_d, ch_u = ctx["chain"]
-                c_seg, vmask = p32["c_seg"], p32["c_seg_valid"]
-                seg_dl = torch.where(vmask, ch_l[c_seg], zero)
-                seg_d = torch.where(vmask, ch_d[c_seg], one)
-                seg_du = torch.where(vmask, ch_u[c_seg], zero)
-                rhs = torch.where(vmask[..., None], vflat[c_row[c_seg]], zero)
-                sol = thomas(seg_dl, seg_d, seg_du, rhs)
-                # the valid chain entries are the connection rows, each once
-                pos = p32["c_seg_pos"]
-                rows = c_row[c_seg.reshape(-1)[pos]]
-                cur = zf[rows]
-                upd = sol.reshape(-1, 2)[pos] - cur
-                zf = zf.index_copy(0, rows, cur + upd)
+            zf = chain_solve(ctx["chain"], p32["c_seg"], p32["c_seg_valid"],
+                             p32["c_seg_pos"], p32["c_row"], vflat, zf)
 
             s_row = p32["s_row"]
             if s_row.shape[0]:
