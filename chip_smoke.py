@@ -112,6 +112,23 @@ Phases (each prints its result and wall time on its own line):
      K-I's run's split by span (P12_SPANS) printed. Phases 8(b), 10(a)
      and 11(a) check that the sharded ranks, the deflated solves and the
      option solves launched K-I.
+ 13. the preconditioner's CUDA graph (DeviceSmoother._apply_Minv): (a)
+     on T106 and the medium grid (meshbench/configs/t106_x2.json), 30
+     applications over two solves through the graph (eager, capture,
+     replays) against the eager _stage_Minv on the same context and
+     input, bit for bit, with the eager application's zebra and chain
+     launches; one capture, 29 replays; an application's time eagerly and
+     replayed (P13_RUN in a row between CUDA events); (b) the first job
+     of the benchmark cells t106.design_loop and t106_x2.laplace_target
+     (seed P13_SEED) through smooth_mesh with the graph and eagerly: final
+     coordinates bit for bit, the same zebra and chain launches, one
+     capture; walls, Picard iterations, the spans an iteration, the
+     capture's seconds (span precond.graph.capture), the peak allocated
+     and the peak reserved memory of each and the graph pool's reserved
+     bytes printed; (c) the harness, ``meshbench.run --trace 1`` for
+     P13_SECONDS s in each of the two cells: every run correct, the K-A
+     kernels in the breakdown's device operations, the zebra roofline
+     shares and graph_capture_s read above 0.
 
 Times: a call's time is a run of back-to-back calls between two CUDA
 events over the count, median of several runs (cuda_time_ms); the window
@@ -146,6 +163,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 PKG = ROOT / "turbomesh_tpu_torch"
 T106 = ROOT / "examples" / "T106" / "T106.json"
 LS89 = ROOT / "examples" / "LS89" / "LS89.json"
+X2_CONFIG = ROOT / "meshbench" / "configs" / "t106_x2.json"
 KERNEL_RTOL = KERNEL_ATOL = 1e-5   # kernel vs plain (tests/test_zebra.py:103)
 # kernel vs plain on the main path's level-0 planes: max |err| <= PLANE_RTOL
 # * max |plain|, per output plane, with the plain version evaluated in f64
@@ -254,6 +272,15 @@ P12_SPANS = ("picard.solve", "solve.prepare", "fgmres.cycle",
              "picard.update", "picard.read")
 
 
+# phase 13: applications in a row a timing run; the benchmark seed of its
+# jobs and the harness's window
+P13_RUN = 20
+P13_SEED = 2718281829
+P13_SECONDS = 5
+P13_CELLS = (("t106.design_loop", "zebra_roofline_pct"),
+             ("t106_x2.laplace_target", "x2_zebra_roofline_pct"))
+
+
 def nvidia_smi() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -355,15 +382,15 @@ def vcycle_calls(levels):
 
 def count_applications(sm):
     """Count the preconditioner applications of smoother ``sm`` in
-    ``sm.applications`` (one V-cycle each)."""
-    inner = sm._stage_Minv
+    ``sm.applications`` (one V-cycle each; eager, captured or replayed)."""
+    inner = sm._apply_Minv
 
     def counted(ctx, v):
         sm.applications += 1
         return inner(ctx, v)
 
     sm.applications = 0
-    sm._stage_Minv = counted
+    sm._apply_Minv = counted
 
 
 def predicted_launches(sm):
@@ -1835,10 +1862,210 @@ class Smoke:
                 + ", ".join(f"{k} {v:.4f}" for k, v in b["spans"].items()))
 
 
+    def p13_graph(self):
+        bad, lines = [], []
+        for part in (self.p13a_replay, self.p13b_jobs, self.p13c_harness):
+            t0 = time.perf_counter()
+            line = f"{part(bad)} ({time.perf_counter() - t0:.2f} s)"
+            print("  " + line, flush=True)
+            lines.append(line)
+        if bad:
+            raise AssertionError("; ".join(bad))
+        return "; ".join(lines)
+
+    def p13a_replay(self, bad):
+        import numpy as np
+
+        torch = self.torch
+        import turbomesh_tpu_torch.smoothing.device as dm
+        from turbomesh_tpu_torch import input as input_mod
+        from turbomesh_tpu_torch.ops import chain, zebra
+        from turbomesh_tpu_torch.smoothing.classify import classify
+
+        out = []
+        for name, path in (("T106", T106), ("t106_x2", X2_CONFIG)):
+            inp = (input_mod.load(str(path), base_dir=str(path.parent))
+                   if path == T106 else
+                   input_mod.load(json.loads(path.read_text())))
+            mesh = inp.template.run(inp.geometry)
+            sm = dm.DeviceSmoother(mesh, classify(mesh), device="cuda")
+            gen = torch.Generator(device="cuda").manual_seed(13)
+            rng = np.random.default_rng(13)
+            n0 = (dm.PRECOND_CAPTURES, dm.PRECOND_REPLAYS)
+            same = launches_ok = True
+            for solve in range(2):
+                coords = mesh.flat_coords() + 1e-4 * np.ptp(
+                    mesh.flat_coords()) * rng.standard_normal(
+                        (mesh.num_points, 2))
+                cf = 0.1 * rng.standard_normal((mesh.num_points, 2))
+                X, C = sm._upload(coords, cf)
+                base, _ = sm._stage_base(X, C)
+                ctx = sm._stage_prepare32(base, C)
+                for _ in range(15):
+                    v = torch.randn((base.shape[0], 2), generator=gen,
+                                    device="cuda")
+                    k = (zebra.ZEBRA_LAUNCHES, chain.CHAIN_LAUNCHES)
+                    got = sm._apply_Minv(ctx, v).clone()
+                    k1 = (zebra.ZEBRA_LAUNCHES, chain.CHAIN_LAUNCHES)
+                    want = sm._stage_Minv(ctx, v)
+                    k2 = (zebra.ZEBRA_LAUNCHES, chain.CHAIN_LAUNCHES)
+                    same &= torch.equal(got.view(torch.int32),
+                                        want.view(torch.int32))
+                    launches_ok &= (k1[0] - k[0], k1[1] - k[1]) == (
+                        k2[0] - k1[0], k2[1] - k1[1])
+            caps = dm.PRECOND_CAPTURES - n0[0]
+            reps = dm.PRECOND_REPLAYS - n0[1]
+            v = torch.randn((base.shape[0], 2), generator=gen, device="cuda")
+            e_ms, _ = cuda_time_ms(torch, lambda: sm._stage_Minv(ctx, v),
+                                   P13_RUN, reps=5)
+            g_ms, _ = cuda_time_ms(torch, lambda: sm._apply_Minv(ctx, v),
+                                   P13_RUN, reps=5)
+            if not (same and launches_ok and caps == 1 and reps == 29):
+                bad.append(f"(a) {name}: replay vs eager bit for bit {same}, "
+                           f"launches equal {launches_ok}, {caps} captures, "
+                           f"{reps} replays (want 1, 29)")
+            out.append(f"{name} ({mesh.num_points} points): 30 applications "
+                       f"over 2 solves, replay vs eager bit for bit {same}, "
+                       f"launches equal {launches_ok}, {caps} capture, "
+                       f"{reps} replays; an application eagerly {e_ms:.4f} "
+                       f"ms, replayed {g_ms:.4f} ms ({P13_RUN} in a row "
+                       f"between CUDA events, median of 5)")
+            del sm, ctx
+        return "(a) " + "; ".join(out)
+
+    def p13b_jobs(self, bad):
+        import numpy as np
+
+        torch = self.torch
+        import turbomesh_tpu_torch.smoothing.device as dm
+        from meshbench import generator, manifest
+        from turbomesh_tpu_torch import input as input_mod
+        from turbomesh_tpu_torch.ops import chain, zebra
+        from turbomesh_tpu_torch.profiling import PhaseTimer
+        from turbomesh_tpu_torch.smoothing import smooth_mesh
+
+        graphed = dm.DeviceSmoother._apply_Minv
+
+        def eager(self, ctx, v):
+            return self._stage_Minv(ctx, v)
+
+        def run(job, route):
+            inp = input_mod.load(job.config)
+            mesh = inp.template.run(inp.geometry)
+            timer = PhaseTimer()
+            n0 = (zebra.ZEBRA_LAUNCHES, chain.CHAIN_LAUNCHES,
+                  dm.PRECOND_CAPTURES, dm.PRECOND_REPLAYS)
+            hist = []
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            dm.DeviceSmoother._apply_Minv = (graphed if route == "graph"
+                                             else eager)
+            t0 = time.perf_counter()
+            try:
+                smooth_mesh(mesh, job.iterations,
+                            wall_control_function=(
+                                inp.smoothing.wall_control_function),
+                            target_residual=job.config["smoothing"].get(
+                                "target_residual"),
+                            residual_history=hist, timer=timer,
+                            device="cuda", **job.smooth_mesh)
+                torch.cuda.synchronize()
+            finally:
+                dm.DeviceSmoother._apply_Minv = graphed
+            wall = time.perf_counter() - t0
+            n = len(hist)
+            return dict(
+                coords=mesh.flat_coords(), wall=wall, iterations=n,
+                zebra=zebra.ZEBRA_LAUNCHES - n0[0],
+                chain=chain.CHAIN_LAUNCHES - n0[1],
+                captures=dm.PRECOND_CAPTURES - n0[2],
+                replays=dm.PRECOND_REPLAYS - n0[3],
+                peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                reserved_mib=torch.cuda.max_memory_reserved() / 2**20,
+                # the graph's pool stays reserved after the smoother has
+                # gone, until the next capture or empty_cache
+                pool_mib=sum(g["total_size"]
+                             for g in torch.cuda.memory_snapshot()
+                             if tuple(g["segment_pool_id"]) != (0, 0))
+                / 2**20,
+                capture_s=timer.totals.get("precond.graph.capture", 0.0),
+                spans={k: timer.totals.get(k, 0.0) / n
+                       for k in ("picard_loop", "precond", "fgmres.operator",
+                                 "fgmres.stop_test", "picard.read")})
+
+        out = []
+        for cell, _ in P13_CELLS:
+            c = manifest.load_cell(cell)
+            job = generator.job(c.traffic, c.config, P13_SEED, 0)
+            # the first run also warms the process up: eager, then the
+            # graph, then eager again, which is kept
+            runs = {}
+            for route in ("eager", "graph", "eager"):
+                runs[route] = run(job, route)
+            g, e = runs["graph"], runs["eager"]
+            same = np.array_equal(g["coords"], e["coords"])
+            if not (same and (g["zebra"], g["chain"]) == (e["zebra"],
+                                                         e["chain"])
+                    and g["zebra"] > 0 and g["captures"] == 1
+                    and e["captures"] == 0):
+                bad.append(f"(b) {cell}: coordinates equal {same}, zebra "
+                           f"{g['zebra']} / {e['zebra']}, chain "
+                           f"{g['chain']} / {e['chain']}, captures "
+                           f"{g['captures']} / {e['captures']}")
+
+            def fmt(r):
+                return (f"wall {r['wall']:.3f} s, {r['iterations']} "
+                        f"iterations, zebra {r['zebra']}, chain "
+                        f"{r['chain']}, captures {r['captures']}, replays "
+                        f"{r['replays']}, capture {r['capture_s']:.4f} s, "
+                        f"peak {r['peak_mib']:.3f} MiB allocated, "
+                        f"{r['reserved_mib']:.3f} MiB reserved (graph pool "
+                        f"{r['pool_mib']:.3f} MiB), an iteration: "
+                        + ", ".join(f"{k} {v:.4f} s"
+                                    for k, v in r["spans"].items()))
+
+            out.append(f"{cell} job 0 ({job.restagger_deg:+.4f} deg): "
+                       f"coordinates bit for bit {same}; graph: {fmt(g)}; "
+                       f"eager: {fmt(e)}")
+        return "(b) " + "; ".join(out)
+
+    def p13c_harness(self, bad):
+        out = []
+        for cell, roofline in P13_CELLS:
+            res = subprocess.run(
+                [sys.executable, "-m", "meshbench.run", "--workload", cell,
+                 "--seed", str(P13_SEED), "--seconds", str(P13_SECONDS),
+                 "--trace", "1"], cwd=str(ROOT), capture_output=True,
+                text=True, timeout=900)
+            try:
+                line = json.loads(res.stdout.strip().splitlines()[-1])
+            except (IndexError, ValueError):
+                bad.append(f"(c) {cell}: rc {res.returncode}, no result "
+                           f"line; stderr tail {res.stderr[-2000:]}")
+                continue
+            m = {k: v["value"] for k, v in line["metrics"].items()}
+            ops = [name for name, _ in line["breakdown"]["device_ops"]]
+            ka = [o for o in ops if "zebra" in o]
+            if not (line["correct"] and ka and m.get(roofline, 0.0) > 0.0
+                    and m.get("graph_capture_s", 0.0) > 0.0):
+                bad.append(f"(c) {cell}: correct {line['correct']}, K-A in "
+                           f"device ops {ka}, {roofline} "
+                           f"{m.get(roofline)}, graph_capture_s "
+                           f"{m.get('graph_capture_s')}")
+            out.append(f"{cell}: correct {line['correct']}, metrics {m}, "
+                       f"busy {line['device']['busy_s']:.4f} s of "
+                       f"{line['device']['window_s']:.4f} s, device ops "
+                       f"{line['breakdown']['device_ops'][:6]}, idle gaps "
+                       f"{line['breakdown']['idle_gaps'][:6]}")
+        return "(c) " + "; ".join(out)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12",
-                    help="comma-separated phases to run (default: 0-12)")
+    ap.add_argument("--phases",
+                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13",
+                    help="comma-separated phases to run (default: 0-13)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -1876,7 +2103,8 @@ def main(argv=None) -> int:
              (10, "10 the last modules (deflation, sharded deflation, "
               "torch_trace, service, bulk TFI)", smoke.p10_last_modules),
              (11, "11 preconditioner options (mg_opts)", smoke.p11_mg_opts),
-             (12, "12 chain kernel K-I (interface solve)", smoke.p12_chain)]
+             (12, "12 chain kernel K-I (interface solve)", smoke.p12_chain),
+             (13, "13 the preconditioner's CUDA graph", smoke.p13_graph)]
     for k, name, fn in steps:
         if k in phases:
             smoke.phase(name, fn)

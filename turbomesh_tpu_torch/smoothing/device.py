@@ -30,6 +30,7 @@ import contextlib
 import dataclasses
 import logging
 import os
+import threading
 
 import numpy as np
 import torch
@@ -38,6 +39,12 @@ from ..profiling import span
 from .classify import BoundaryInfo, Kind
 
 log = logging.getLogger("turbomesh.smoothing")
+
+#: CUDA graphs captured over one preconditioner application, and their
+#: replays, since the last reset (each DeviceSmoother captures one and
+#: replays it for its later applications: DeviceSmoother._apply_Minv)
+PRECOND_CAPTURES = 0
+PRECOND_REPLAYS = 0
 
 
 @dataclasses.dataclass
@@ -379,6 +386,102 @@ def _defl_basis_arrays(block_sizes, N, M, free_mask, comps):
     return FU, FV, keep
 
 
+def _write_into(kept, fresh):
+    """Copy every tensor of ``fresh`` (tensors in dicts, tuples and lists)
+    into the tensor at the same place of ``kept``, the same structure;
+    a tensor that is the kept one itself is left alone."""
+    if isinstance(fresh, torch.Tensor):
+        if fresh is not kept:
+            kept.copy_(fresh)
+    elif isinstance(fresh, dict):
+        for key, value in fresh.items():
+            _write_into(kept[key], value)
+    elif isinstance(fresh, (tuple, list)):
+        for a, b in zip(kept, fresh):
+            _write_into(a, b)
+
+
+#: one capture at a time in the process, as torch's CUDA graphs require
+#: (``MeshService`` runs jobs in threads); ``_CAPTURING`` is the thread
+#: that captures, and ``_KEPT`` holds the graphs that the collector frees
+#: in that thread meanwhile: destroying a graph there would invalidate the
+#: capture, so they go when it ends (``_PrecondGraph.__del__``)
+_CAPTURE_LOCK = threading.Lock()
+_CAPTURING = None
+_KEPT = []
+
+
+class _PrecondGraph:
+    """One CUDA graph over one f32 preconditioner application of a
+    smoother, ``stage(ctx, v)`` with ``ctx`` the smoother's kept context.
+
+    The first application runs eagerly: it loads the kernels' modules
+    (CUDA's lazy loading) and warms the allocator. The second captures
+    ``stage`` (``torch.cuda.graph``: the card synchronised, the
+    allocator's free cache, other smoothers' released pools included,
+    handed back first), its input ``v`` then the graph's static input,
+    its intermediates in the graph's private memory pool, and replays the
+    graph once; every later one copies its input into the static input
+    and replays. A replay runs the captured kernels in the captured order,
+    so it returns the eager application's values bit for bit.
+    ``ops.zebra.ZEBRA_LAUNCHES`` and ``ops.chain.CHAIN_LAUNCHES`` count the
+    launches a replay makes: the capture counts them once (for the replay
+    that follows it), and each later replay adds them. The graph and its
+    pool go with the smoother."""
+
+    __slots__ = ("applications", "graph", "v", "z", "launches")
+
+    def __init__(self):
+        self.applications = 0
+        self.graph = None
+
+    def __del__(self):
+        if _CAPTURING is not None and _CAPTURING == threading.get_ident() \
+                and self.graph is not None:
+            _KEPT.append((self.graph, self.v, self.z))
+
+    def __call__(self, stage, ctx, v):
+        from ..ops import chain, zebra
+
+        global PRECOND_CAPTURES, PRECOND_REPLAYS
+        self.applications += 1
+        if self.applications == 1:
+            return stage(ctx, v)
+        if self.graph is None:
+            self._capture(stage, ctx, v)
+        else:
+            self.v.copy_(v)
+            nz, nc = self.launches
+            zebra.ZEBRA_LAUNCHES += nz
+            chain.CHAIN_LAUNCHES += nc
+        self.graph.replay()
+        PRECOND_REPLAYS += 1
+        return self.z
+
+    def _capture(self, stage, ctx, v):
+        """Capture ``stage(ctx, v)`` into ``graph`` (and instantiate it),
+        ``v`` the static input and the result the static output ``z``."""
+        from ..ops import chain, zebra
+
+        global _CAPTURING, PRECOND_CAPTURES
+        with _CAPTURE_LOCK, span("precond.graph.capture"):
+            graph = torch.cuda.CUDAGraph()
+            nz, nc = zebra.ZEBRA_LAUNCHES, chain.CHAIN_LAUNCHES
+            _CAPTURING = threading.get_ident()
+            try:
+                with torch.cuda.graph(graph,
+                                      stream=torch.cuda.Stream(v.device),
+                                      capture_error_mode="thread_local"):
+                    z = stage(ctx, v)
+            finally:
+                _CAPTURING = None
+                _KEPT.clear()
+            self.launches = (zebra.ZEBRA_LAUNCHES - nz,
+                             chain.CHAIN_LAUNCHES - nc)
+            self.graph, self.v, self.z = graph, v, z
+            PRECOND_CAPTURES += 1
+
+
 class DeviceSmoother:
     """Device counterpart of SparseSystem.solve, plus the device-resident
     Picard loop (run).
@@ -413,6 +516,12 @@ class DeviceSmoother:
     #: the mg_opts keys that set the V-cycle's schedule and depth
     SCHEDULE_KEYS = ("pre", "post", "coarse_iters", "pre_dirs", "post_dirs",
                      "n_levels")
+    #: the f32 context that _stage_prepare32 writes every solve into (the
+    #: first solve's), where the smoother glues with its own maps; the
+    #: preconditioner's CUDA graph reads it (_apply_Minv)
+    _ctx = None
+    #: the _PrecondGraph of _apply_Minv
+    _graph = None
 
     def __init__(self, mesh, info: BoundaryInfo, *, device,
                  rtol: float = 1e-13, atol: float = 1e-15,
@@ -432,7 +541,7 @@ class DeviceSmoother:
         both). max_iters: FGMRES iterations in all, the JAX package's
         alias of max_restarts = max(1, max_iters // restart)."""
         from .glue import build_glue
-        from .multigrid import prep_glue_arrays
+        from .multigrid import glued_level_statics, prep_glue_arrays
 
         self.device = torch.device(device)
         with span("solver_setup.plan"):
@@ -469,6 +578,9 @@ class DeviceSmoother:
                               n_levels=self.mg_opts["n_levels"],
                               transposed=p.transposed, keep_boundaries=True)
             self._glue_dev = prep_glue_arrays(glue, self.device)
+            self._mg_static = glued_level_statics(self._glue_dev,
+                                                  torch.float32)
+        self._graph = _PrecondGraph()
         self.last_linear_residual = float("nan")
         self.last_linear_converged = False
         self.last_restarts = 0
@@ -711,14 +823,31 @@ class DeviceSmoother:
         return self._substitute(Xf1, 1.0)
 
     def _glued_levels(self, baseX32, cf32):
-        """(glued multigrid levels, per-level glue callables or None)."""
-        from .multigrid import build_glued_levels
+        """(glued multigrid levels, per-level glue callables or None).
+        Once the smoother keeps a context, each level is written into the
+        kept one as it is built, and those are returned."""
+        from .multigrid import iter_glued_levels
 
-        return build_glued_levels(baseX32, cf32, self._glue_dev), None
+        levels = iter_glued_levels(baseX32, cf32, self._glue_dev,
+                                   statics=self._mg_static)
+        if self._ctx is None:
+            return list(levels), None
+        kept = self._ctx["mg"]
+        for lvl, level in enumerate(levels):
+            _write_into(kept[lvl], level)
+        return kept, None
 
     def _stage_prepare32(self, baseF, cf_pad):
         """f32 inner-solver context: diagonal, chain factors, glued
-        multigrid levels and the f64-differenced operator metrics."""
+        multigrid levels and the f64-differenced operator metrics.
+
+        With the smoother's own glue (``glue_fns`` None) the first
+        context is kept (``_ctx``), and every later solve writes its
+        values into the kept tensors and returns that context: its
+        tensors keep their addresses for the life of the smoother, as the
+        preconditioner's CUDA graph needs (_apply_Minv). The parts that
+        depend on the mesh alone are built once (``glued_level_statics``).
+        """
         p32 = self._p32
         B, N, M = self._shape
         baseV = self._remote_F(baseF)
@@ -751,6 +880,12 @@ class DeviceSmoother:
         ctx = dict(baseF32=baseF32, cf32=cf32, diag=diag_field, chain=ch,
                    G=G, cG=cG64.to(torch.float32), cG64=cG64, mg=levels,
                    glue_fns=glue_fns)
+        if glue_fns is None:
+            if self._ctx is None:
+                self._ctx = ctx
+            else:
+                _write_into(self._ctx, ctx)
+                ctx = self._ctx
         if self._defl_K:
             ctx["defl"] = self._defl_galerkin(ctx)
         return ctx
@@ -951,6 +1086,18 @@ class DeviceSmoother:
             return ze + self._interface_passes(ctx, rr)
         return z0 + ze + self._interface_passes(ctx, rr)
 
+    def _apply_Minv(self, ctx, vflat):
+        """One preconditioner application, ``_stage_Minv(ctx, vflat)``:
+        through the smoother's CUDA graph where the context is the
+        smoother's kept one (which exists only where it glues with its own
+        maps), on CUDA tensors and without deflation; eagerly otherwise
+        (the CPU, the sharded path, the deflated one). The result may be
+        the graph's static output, which the next application overwrites:
+        the caller copies it."""
+        if not vflat.is_cuda or ctx is not self._ctx or "defl" in ctx:
+            return self._stage_Minv(ctx, vflat)
+        return self._graph(self._stage_Minv, ctx, vflat)
+
     # -- the linear solve -------------------------------------------------------
 
     def _solve_impl(self, Xpad, cf_pad, rtol: float):
@@ -981,7 +1128,7 @@ class DeviceSmoother:
         def M_s(v):
             with span("precond"):
                 v32 = (row_diag * v).to(torch.float32)
-                return self._stage_Minv(ctx, v32).to(torch.float64)
+                return self._apply_Minv(ctx, v32).to(torch.float64)
 
         b_s = inv_row * b
         tol2 = torch.clamp(rtol * self._norm(b), min=self.atol)

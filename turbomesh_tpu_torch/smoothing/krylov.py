@@ -38,16 +38,17 @@ def fgmres_one_cycle(A, b, M_inv, dot, m, x):
     """One FGMRES(m) restart cycle from iterate ``x``: Arnoldi over the
     preconditioned directions Z, modified Gram-Schmidt over i <= k,
     Givens least-squares, update. Returns (x1, r1, ||r1||) with the norm
-    as a device scalar (no host synchronisation)."""
+    as a device scalar (no host synchronisation). The directions go into
+    one (m, ...) tensor as they come, which the update contracts as it
+    stands: no stacked copy of them at the cycle's end."""
     r = b - A(x)
     beta = torch.sqrt(dot(r, r))
     V = [r / _nonzero(beta)]
-    Z = []
+    Z = torch.empty((m,) + tuple(b.shape), dtype=b.dtype, device=b.device)
     H = torch.zeros((m + 1, m), dtype=b.dtype, device=b.device)
     for k in range(m):
-        z = M_inv(V[k])
-        Z.append(z)
-        w = A(z)
+        Z[k] = M_inv(V[k])
+        w = A(Z[k])
         for i in range(k + 1):
             hik = dot(w, V[i])
             H[i, k] = hik
@@ -58,7 +59,7 @@ def fgmres_one_cycle(A, b, M_inv, dot, m, x):
     e1 = torch.zeros(m + 1, dtype=b.dtype, device=b.device)
     e1[0] = beta
     y = _lsq_givens(H, e1, m)
-    x1 = x + torch.tensordot(y, torch.stack(Z), dims=1)
+    x1 = x + torch.tensordot(y, Z, dims=1)
     r1 = b - A(x1)
     return x1, r1, torch.sqrt(dot(r1, r1))
 

@@ -85,6 +85,48 @@ def _pad1(a, value=0.0):
     return F.pad(a, (1, 1, 1, 1), value=value)
 
 
+def glued_level_statics(glue_levels, dtype, masks=None, maps=None,
+                        own_glue=True):
+    """The part of each level of ``build_glued_levels`` that depends on
+    the mesh alone: the smooth mask (``interior``), the ghost-framed mask
+    and color selectors of the zebra planes in ``dtype``, with
+    ``own_glue`` the level's glue indices and its glue weights cast to
+    ``dtype``, and the transfer maps of boundary-aligned levels.
+    ``glue_levels``, ``masks``, ``maps`` as in ``build_glued_levels``."""
+    out = []
+    for lvl, gl in enumerate(glue_levels):
+        if maps is not None:
+            mp = maps[lvl]
+        else:
+            mp = {k: gl[k] for k in MAP_KEYS} if "li_map" in gl else None
+        mask = gl["smooth_mask"] if masks is None else masks[lvl]
+        B, N, M = mask.shape
+        mskp = _pad1(mask.to(dtype))
+        odd_i = (torch.arange(N + 2, device=mask.device) + 1) % 2
+        odd_j = (torch.arange(M + 2, device=mask.device) + 1) % 2
+        odd_i = odd_i.view(1, N + 2, 1).to(dtype)
+        odd_j = odd_j.view(1, 1, M + 2).to(dtype)
+
+        def sel(odd, par):
+            return (mskp * (odd == par).to(dtype)).contiguous()
+
+        rec = dict(interior=mask, zebra=dict(
+            msk=mskp.contiguous(),
+            sel_j=(sel(odd_j, 0.0), sel(odd_j, 1.0)),
+            sel_i=(sel(odd_i, 0.0), sel(odd_i, 1.0))))
+        if own_glue:
+            rec.update(gsrc=gl["gsrc"], gdst=gl["gdst"],
+                       gcsrc=gl["gcsrc"], gcdst=gl["gcdst"],
+                       gcw=gl["gcw"].to(dtype), gjdst=gl["gjdst"],
+                       gjsrc=gl["gjsrc"], gjw=gl["gjw"].to(dtype))
+        if mp is not None:
+            # transfer maps for the boundary-aligned (non-stride-2) levels,
+            # relative to the PARENT level
+            rec.update(mp)
+        out.append(rec)
+    return out
+
+
 def build_glued_levels(base, cf, glue_levels, glue_fns=None, masks=None,
                        maps=None):
     """Build the glued hierarchy. base/cf: (B, N, M, 2) padded stacks
@@ -101,25 +143,34 @@ def build_glued_levels(base, cf, glue_levels, glue_fns=None, masks=None,
     present, glues corrections (_glue_correction).
     masks: per-level smooth masks; maps: per-level transfer maps (None or
     a dict of MAP_KEYS) — this rank's slices."""
+    return list(iter_glued_levels(base, cf, glue_levels, glue_fns, masks,
+                                  maps))
+
+
+def iter_glued_levels(base, cf, glue_levels, glue_fns=None, masks=None,
+                      maps=None, statics=None):
+    """``build_glued_levels`` one level at a time, finest first: a caller
+    that keeps what it needs of a level lets the level's tensors go before
+    the next is built. statics: ``glued_level_statics`` of the same
+    pieces, built once for a mesh (built here when None), whose tensors
+    each level holds as they are."""
     dt = base.dtype
-    levels = []
-    for lvl, gl in enumerate(glue_levels):
-        if maps is not None:
-            mp = maps[lvl]
-        else:
-            mp = {k: gl[k] for k in MAP_KEYS} if "li_map" in gl else None
+    if statics is None:
+        statics = glued_level_statics(glue_levels, dt, masks, maps,
+                                      own_glue=glue_fns is None)
+    for lvl, st in enumerate(statics):
         glue_fn = None if glue_fns is None else glue_fns[lvl]
         if lvl > 0:
-            if mp is not None:
-                base = _subsample_mapped(base, mp["li_map"], mp["lj_map"])
-                cf = _subsample_mapped(cf, mp["li_map"], mp["lj_map"])
+            if "li_map" in st:
+                base = _subsample_mapped(base, st["li_map"], st["lj_map"])
+                cf = _subsample_mapped(cf, st["li_map"], st["lj_map"])
             else:
                 base = base[:, ::2, ::2, :]
                 cf = cf[:, ::2, ::2, :]
-        mask = gl["smooth_mask"] if masks is None else masks[lvl]
+        mask = st["interior"]
         if glue_fn is None:
-            baseg = _glue_pad(base, gl["gsrc"], gl["gdst"],
-                              gl["goff"].to(dt), True)
+            baseg = _glue_pad(base, st["gsrc"], st["gdst"],
+                              glue_levels[lvl]["goff"].to(dt), True)
         else:
             baseg = glue_fn(base, True)
         # glued metrics over the whole block region (faces included)
@@ -155,41 +206,16 @@ def build_glued_levels(base, cf, glue_levels, glue_fns=None, masks=None,
         )
 
         # ghost-framed zebra planes (one ghost ring, contiguous)
-        B, N, M = mask.shape
-        mskp = _pad1(mask.to(dt))
-        odd_i = (torch.arange(N + 2, device=base.device) + 1) % 2
-        odd_j = (torch.arange(M + 2, device=base.device) + 1) % 2
-        odd_i = odd_i.view(1, N + 2, 1).to(dt)
-        odd_j = odd_j.view(1, 1, M + 2).to(dt)
-
-        def sel(odd, par):
-            return (mskp * (odd == par).to(dt)).contiguous()
-
         zebra = dict(
+            st["zebra"],
             bx=baseg[..., 0].contiguous(), by=baseg[..., 1].contiguous(),
             cfp=_pad1(P).contiguous(), cfq=_pad1(Q).contiguous(),
-            msk=mskp.contiguous(),
             li=tuple(_pad1(a, v).contiguous()
                      for a, v in zip(li, (0.0, 1.0, 0.0))),
             lj=tuple(_pad1(a, v).contiguous()
                      for a, v in zip(lj, (0.0, 1.0, 0.0))),
-            sel_j=(sel(odd_j, 0.0), sel(odd_j, 1.0)),
-            sel_i=(sel(odd_i, 0.0), sel(odd_i, 1.0)),
         )
-
-        rec = dict(baseg=baseg, cf=cf, interior=mask, stencil=stencil,
-                   zebra=zebra)
-        if glue_fn is None:
-            rec.update(gsrc=gl["gsrc"], gdst=gl["gdst"],
-                       gcsrc=gl["gcsrc"], gcdst=gl["gcdst"],
-                       gcw=gl["gcw"].to(dt), gjdst=gl["gjdst"],
-                       gjsrc=gl["gjsrc"], gjw=gl["gjw"].to(dt))
-        if mp is not None:
-            # transfer maps for the boundary-aligned (non-stride-2) levels,
-            # relative to the PARENT level
-            rec.update(mp)
-        levels.append(rec)
-    return levels
+        yield dict(st, baseg=baseg, cf=cf, stencil=stencil, zebra=zebra)
 
 
 def _glue_pad(v, src, dst, off, coord_field=False):
