@@ -41,11 +41,6 @@ Phases (each prints its result and wall time on its own line):
   6. real size: the scaled T106 cascade at scale 4 (388,448 points),
      Laplace, run to the displacement residual 1e-10 within 30 Picard
      iterations.
-  7. main path of the bench: ``bench.main`` at scale 1, then LS89, T106
-     and the SOR entry. Every entry must finish, LS89 and T106 reach 1e-10
-     (through the frozen continuation), every linear solve converge, all
-     three kernels launch, and the last line parse and fit in 1024 bytes.
-     The kernel counts are set to 0 just before and read just after.
   8. the block-sharded path (parallel.ShardedSmoother, one process per
      rank, spawned from here; each rank's counts set to 0 just before its
      run and read just after): (a) NCCL, world 1, scale 4, Laplace, run to
@@ -137,7 +132,7 @@ around one call, the method of the earlier numbers, is printed beside it.
 Exits nonzero, printing no result, without a CUDA device or outside a
 checkout of the repository, and when any phase fails. On success the last
 two lines are the kernels JSON object (name, route, source, replaced TPU
-kernel, launches on the bench's main path, max |err|, kernel / plain /
+kernel, max |err|, kernel / plain /
 library ms, and the bound: the larger of the bytes each call must move
 at 3.35 TB/s and its flops at the card's peak for their type;
 red_black_sor also its launches a 256 x 256 f32 call) and
@@ -181,7 +176,6 @@ SOR_SWEEPS = 50
 # SOR kernel vs plain: max |err| <= bar * max |plain|; f32 against the
 # plain version run in f64 on the same (f32) operands
 SOR_BAR = {"float64": 1e-12, "float32": 1e-5}
-SUMMARY_MAX_BYTES = 1024
 # timing: runs of back-to-back calls per measurement, and launches a run
 TIMING_REPS = 11
 PROBE_RUN = 200
@@ -279,6 +273,32 @@ P13_SEED = 2718281829
 P13_SECONDS = 5
 P13_CELLS = (("t106.design_loop", "zebra_roofline_pct"),
              ("t106_x2.laplace_target", "x2_zebra_roofline_pct"))
+
+
+def scaled_t106_config(s: int) -> dict:
+    """The scaled T106 cascade: O4H cell counts multiplied by ``s``
+    (25,118 points at scale 1, 388,448 at scale 4)."""
+    return {
+        "template": {"O4H": {
+            "inlet_distance": 0.05, "outlet_distance": 0.02,
+            "wall_delta_s": min(0.01, 0.4 / (40 * s)),
+            "blade_clustering": {"roberts": {"alpha": 0.5, "beta": 1.03}},
+            "num_cells": {
+                "o_grid": 40 * s, "middle_i": 100 * s, "in_up_j": 30 * s,
+                "in_down_j": 10 * s, "in_i": 10 * s, "out_up_j": 40 * s,
+                "out_down_j": 10 * s, "out_i": 10 * s, "down_j": 40 * s,
+                "bulge": 40 * s, "upstream_i": 20 * s, "downstream_i": 10 * s,
+            },
+        }},
+        "smoothing": {},
+        "geometry": {
+            "pitch": 0.08836,
+            "profile": {"csv": {
+                "down_csv_path": "examples/T106/T106_ps.dat",
+                "up_csv_path": "examples/T106/T106_ss.dat",
+            }},
+        },
+    }
 
 
 def nvidia_smi() -> str:
@@ -498,24 +518,6 @@ def sor_cases(np, scale4_mesh, seed):
             case("c 24x20 edge mask", small, emask, 0.3 / 24)]
 
 
-class Tee:
-    """Writes to the real stdout and keeps a copy."""
-
-    def __init__(self, out):
-        self.out = out
-        self.parts = []
-
-    def write(self, text):
-        self.parts.append(text)
-        return self.out.write(text)
-
-    def flush(self):
-        self.out.flush()
-
-    def lines(self):
-        return "".join(self.parts).splitlines()
-
-
 def max_rel_err(got, want) -> float:
     """max |got - want| over max |want|, the worse of the x and y planes."""
     return max(float((g - w).abs().max() / w.abs().max())
@@ -625,15 +627,15 @@ class Smoke:
         """The T106 ("t106") or LS89 ("ls89") example mesh, or the scale-4
         cascade ("scale4"), built once."""
         if name not in self._meshes:
-            from turbomesh_tpu_torch import bench
             from turbomesh_tpu_torch import input as input_mod
 
             if name in ("t106", "ls89"):
                 path = T106 if name == "t106" else LS89
                 inp = input_mod.load(str(path), base_dir=str(path.parent))
-                self._meshes[name] = inp.template.run(inp.geometry)
             else:
-                self._meshes[name] = bench.build_mesh(4)
+                inp = input_mod.load(scaled_t106_config(4),
+                                     base_dir=str(ROOT))
+            self._meshes[name] = inp.template.run(inp.geometry)
         return self._meshes[name]
 
     def phase(self, name, fn):
@@ -1068,59 +1070,6 @@ class Smoke:
                 f"{peak / 2**20:.1f} MiB; linear rtols "
                 f"{sorted(set(dev.last_run_rtols))}; {launches} zebra "
                 f"launches, {launches / iters:.1f} per Picard iteration")
-
-    def p7_bench(self):
-        import contextlib
-
-        torch = self.torch
-        from turbomesh_tpu_torch import bench
-        from turbomesh_tpu_torch.ops import probe, sor, zebra
-
-        tee = Tee(sys.stdout)
-        zebra.ZEBRA_LAUNCHES = sor.SOR_LAUNCHES = probe.PROBE_LAUNCHES = 0
-        with contextlib.redirect_stdout(tee):
-            rc = bench.main(["1", "--device", "cuda"])
-        torch.cuda.synchronize()
-        launches = {"zebra_half_sweep": zebra.ZEBRA_LAUNCHES,
-                    "red_black_sor": sor.SOR_LAUNCHES,
-                    "probe": probe.PROBE_LAUNCHES}
-        lines = tee.lines()
-        if rc != 0:
-            raise AssertionError(f"bench.main returned {rc}")
-        last = lines[-1]
-        if len(last.encode()) > SUMMARY_MAX_BYTES:
-            raise AssertionError(f"last line {len(last.encode())} bytes")
-        summary = json.loads(last)
-        if summary.get("card") != nvidia_smi():
-            raise AssertionError(f"summary card {summary.get('card')!r}")
-        recs = [json.loads(line) for line in lines
-                if line.startswith("{") and '"metric"' not in line]
-        keys = [bench.record_key(r) for r in recs]
-        if keys != ["scale1", "LS89", "T106", "sor"]:
-            raise AssertionError(f"entries {keys}")
-        bad = []
-        for key, r in zip(keys, recs):
-            if "error" in r:
-                bad.append(f"{key}: {r['error']}")
-            if key == "sor":
-                continue
-            frozen = r.get("frozen_continuation") or {}
-            if not (r["reached_target"] or frozen.get("reached_target")):
-                bad.append(f"{key} did not reach {TARGET}")
-            if not (r["linear_solves_converged"]
-                    and frozen.get("linear_solves_converged", True)):
-                bad.append(f"{key}: a linear solve did not converge")
-        for name, n in launches.items():
-            if n <= 0:
-                bad.append(f"{name} launched no time on the bench path")
-            self.kernels[name]["launches"] = n
-        if bad:
-            raise AssertionError("; ".join(bad))
-        return (f"bench scale 1, LS89, T106, sor: {summary['entries']}; "
-                f"value {summary['value']} {summary['unit']}, vs_baseline "
-                f"{summary['vs_baseline']}; last line {len(last.encode())} "
-                f"bytes; launches {launches}")
-
 
     # -- the sharded path ----------------------------------------------------
 
@@ -2064,8 +2013,9 @@ class Smoke:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="0,1,2,3,4,5,6,7,8,9,10,11,12,13",
-                    help="comma-separated phases to run (default: 0-13)")
+                    default="0,1,2,3,4,5,6,8,9,10,11,12,13",
+                    help="comma-separated phases to run (default: 0-6, "
+                    "8-13)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -2094,8 +2044,6 @@ def main(argv=None) -> int:
              (4, "4 main path (T106, White, cli)", smoke.p4_main_path),
              (5, "5 oracle (T106, Laplace)", smoke.p5_oracle),
              (6, "6 scale 4 run to 1e-10", smoke.p6_scale4),
-             (7, "7 main path (bench: scale 1, LS89, T106, sor)",
-              smoke.p7_bench),
              (8, "8 sharded path (nccl world 1; gloo world 4 on one card)",
               smoke.p8_sharded),
              (9, "9 3-D stacked cuts (demo_3d_sharded, world 2)",

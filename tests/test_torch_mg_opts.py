@@ -5,7 +5,8 @@ One ``_stage_Minv`` application and one V-cycle per option match JAX's
 (an instance with the same ``mg_opts``, on the same f32 context and
 residual) to 5e-5 relative, the repo's kernel-vs-XLA bar. The sharded
 smoother raises on the schedule keys, both smoothers on unknown keys, the
-env switches TURBOMESH_SCHUR and TURBOMESH_ADAPTIVE_RTOL take effect,
+env switches TURBOMESH_SCHUR and TURBOMESH_ADAPTIVE_RTOL take effect
+(the latter read as JAX reads it),
 ``max_iters`` maps as JAX's, and ``multigrid.vcycle_half_sweeps`` counts
 the half-sweeps of a V-cycle. The solves under the options are in
 tests/test_torch_mg_opts_solve.py.
@@ -23,6 +24,7 @@ from turbomesh_tpu.smoothing.control_function import Laplace as JLaplace
 from turbomesh_tpu.smoothing.control_function import White as JWhite
 from turbomesh_tpu.smoothing.device import DeviceSmoother as JaxSmoother
 
+import turbomesh_tpu_torch.smoothing.device as device_mod
 import turbomesh_tpu_torch.smoothing.multigrid as tmg
 from turbomesh_tpu_torch import input as torch_input
 from turbomesh_tpu_torch.parallel import ShardedSmoother
@@ -201,6 +203,19 @@ def test_env_switches(strip, monkeypatch):
         assert sm.last_run_rtols == [1e-6, 1e-6], (env, opts)
 
 
+@pytest.mark.parametrize("value", ["", "false", "2"])
+def test_adaptive_rtol_env_reads_as_jax(monkeypatch, value):
+    """TURBOMESH_ADAPTIVE_RTOL set to anything but "1" turns run's
+    adaptive forcing off, as the JAX package's ``== "1"`` does; "1" and
+    the variable unset leave it on."""
+    monkeypatch.setenv("TURBOMESH_ADAPTIVE_RTOL", value)
+    assert device_mod._adaptive_rtol_env() is False
+    monkeypatch.setenv("TURBOMESH_ADAPTIVE_RTOL", "1")
+    assert device_mod._adaptive_rtol_env() is True
+    monkeypatch.delenv("TURBOMESH_ADAPTIVE_RTOL")
+    assert device_mod._adaptive_rtol_env() is True
+
+
 @pytest.mark.parametrize("max_iters,restart", [(95, 10), (5, 10), (None, 10),
                                                (300, 30)])
 def test_max_iters_alias(strip, max_iters, restart):
@@ -222,10 +237,10 @@ def test_vcycle_half_sweeps_counts_the_vcycle(monkeypatch, opts, levels):
     call makes on a stand-in hierarchy of ``levels`` levels."""
     calls = []
     monkeypatch.setattr(tmg, "_smooth_glued",
-                        lambda level, r, z, directions="ij", glue_fn=None:
+                        lambda level, r, z, directions="ij":
                         calls.append(2 * len(directions)) or z)
-    monkeypatch.setattr(tmg, "_apply_glued", lambda level, z, g: z)
-    monkeypatch.setattr(tmg, "_restrict_glued", lambda lv, r, c, g: r)
+    monkeypatch.setattr(tmg, "_apply_glued", lambda level, z: z)
+    monkeypatch.setattr(tmg, "_restrict_glued", lambda lv, r, c: r)
     monkeypatch.setattr(tmg, "_prolong", lambda zc, shape: zc)
     lv = {"interior": torch.ones((1, 3, 3), dtype=torch.bool)}
     r = torch.zeros((1, 3, 3, 2))

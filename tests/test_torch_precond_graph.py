@@ -5,11 +5,12 @@ On the CPU: the split context (the parts that depend on the mesh alone
 built once, ``multigrid.glued_level_statics``; the per-solve parts written
 every solve into the tensors of the first) gives levels and a context
 equal bit for bit to a build from scratch, keeps its tensors' addresses
-and refreshes every per-solve tensor from one solve to the next; a
+and refreshes every per-solve tensor from one solve to the next, on one
+device and on the sharded path (a world of 1); a
 3-iteration small-O4H ``run`` gives the coordinates of a run that builds
 its context from scratch every solve, with the same zebra launches, under
 the default options, ``schur`` False, the split "j" / "i" schedule and
-``n_levels`` 3; CPU tensors capture no graph. On a card (``-m cuda``):
+``n_levels`` 3; a smoother on the CPU has no graph. On a card (``-m cuda``):
 the replayed application equals the eager one bit for bit over 30
 applications spanning two solves (T106 and the medium grid), a 10-iteration
 T106 ``smooth_mesh`` gives the eager run's coordinates and launch counts
@@ -25,11 +26,14 @@ import json
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import turbomesh_tpu_torch.smoothing.device as device_mod
 import turbomesh_tpu_torch.smoothing.multigrid as tmg
 from turbomesh_tpu_torch import input as torch_input
 from turbomesh_tpu_torch.ops import chain, zebra
+from turbomesh_tpu_torch.parallel import ShardedSmoother
+from turbomesh_tpu_torch.parallel import dist as pdist
 from turbomesh_tpu_torch.smoothing import smooth_mesh
 from turbomesh_tpu_torch.smoothing.classify import classify
 from turbomesh_tpu_torch.smoothing.control_function import White
@@ -112,29 +116,43 @@ def _inputs(sm, mesh, seed):
     return sm._upload(coords, cf)
 
 
-def _scratch_ctx(mesh, info, opts, X, C, device="cpu"):
+def _new_smoother(mesh, info, name):
+    """A DeviceSmoother on the CPU under the options ``name``, or with
+    "sharded_world1" a ShardedSmoother of the world of 1."""
+    if name == "sharded_world1":
+        return ShardedSmoother(mesh, info, device="cpu")
+    return DeviceSmoother(mesh, info, device="cpu", mg_opts=OPTIONS[name])
+
+
+def _scratch_ctx(mesh, info, name, X, C):
     """The context a new smoother builds on its first solve, and its
-    levels built by ``build_glued_levels`` from nothing."""
-    sm = DeviceSmoother(mesh, info, device=device, mg_opts=opts)
+    levels built by ``build_glued_levels`` from nothing (the sharded one's
+    from the single-device maps of its logical frame)."""
+    sm = _new_smoother(mesh, info, name)
     base, _ = sm._stage_base(X, C)
     ctx = sm._stage_prepare32(base, C)
     B, N, M = sm._shape
+    glue = (tmg.prep_glue_arrays(sm.layout.glue_levels, "cpu")
+            if name == "sharded_world1" else sm._glue_dev)
     levels = tmg.build_glued_levels(
         base.to(torch.float32).reshape(B, N, M, 2), C.to(torch.float32),
-        sm._glue_dev)
+        glue)
     return ctx, levels
 
 
-@pytest.mark.parametrize("name", ["defaults", "n_levels3"])
-def test_kept_context_equals_a_build_from_scratch(t106, name):
+@pytest.mark.parametrize("name", ["defaults", "n_levels3", "sharded_world1"])
+def test_kept_context_equals_a_build_from_scratch(t106, request, name):
     """Two solves in a row on T106: after each the kept context equals a
     new smoother's context of the same solve and its levels equal
     ``build_glued_levels`` from nothing, bit for bit; the kept tensors keep
     their addresses; every tensor that is not the mesh's alone changes
-    from the first solve to the second."""
+    from the first solve to the second. The sharded smoother (a world of
+    1) keeps its context the same way."""
     mesh, info = t106
-    opts = OPTIONS[name]
-    sm = DeviceSmoother(mesh, info, device="cpu", mg_opts=opts)
+    if name == "sharded_world1":
+        pdist.ensure_group("cpu")
+        request.addfinalizer(dist.destroy_process_group)
+    sm = _new_smoother(mesh, info, name)
     if name == "n_levels3":
         assert len(sm._glue_dev) == 3
     snaps = []
@@ -143,12 +161,11 @@ def test_kept_context_equals_a_build_from_scratch(t106, name):
         base, _ = sm._stage_base(X, C)
         ctx = sm._stage_prepare32(base, C)
         assert ctx is sm._ctx
-        want, levels = _scratch_ctx(mesh, info, opts, X, C)
+        want, levels = _scratch_ctx(mesh, info, name, X, C)
         _assert_trees_equal(ctx, want)
         _assert_trees_equal(ctx["mg"], levels)
         snaps.append([(p, t.data_ptr(), t.clone()) for p, t in _leaves(ctx)])
     static = {id(t) for _, t in _leaves(sm._mg_static)}
-    static |= {id(t) for gl in sm._glue_dev for t in gl.values()}
     changed = 0
     for (path, ptr1, t1), (_, ptr2, t2), (_, t) in zip(*snaps,
                                                          _leaves(sm._ctx)):
@@ -209,7 +226,7 @@ def _run3(sm, mesh):
     alg = White(ds_target=1e-4)
     coords, cf, disp, n = sm.run(mesh.flat_coords(), alg.init(mesh), 3,
                                  algorithm=alg)
-    assert n == 3 and sm._graph.applications == 0
+    assert n == 3 and sm._graph is None
     return (coords, cf, disp, zebra.ZEBRA_LAUNCHES, chain.CHAIN_LAUNCHES,
             sm.last_run_rtols)
 
@@ -242,8 +259,8 @@ def test_run_with_the_kept_context_is_bitwise(small, monkeypatch, name):
 
 
 def test_no_graph_on_cpu_tensors(small):
-    """``_apply_Minv`` on CPU tensors runs ``_stage_Minv`` eagerly every
-    time, whatever the context: the same values, no capture."""
+    """A smoother on the CPU has no graph: ``_apply_Minv`` runs
+    ``_stage_Minv`` eagerly every time, the same values, no capture."""
     mesh, info = small
     sm = DeviceSmoother(mesh, info, device="cpu")
     X, C = _inputs(sm, mesh, 3)
@@ -255,7 +272,7 @@ def test_no_graph_on_cpu_tensors(small):
         v = torch.as_tensor(rng.standard_normal((base.shape[0], 2)),
                             dtype=torch.float32)
         assert _same_bits(sm._apply_Minv(ctx, v), sm._stage_Minv(ctx, v))
-    assert sm._graph.applications == 0 and sm._graph.graph is None
+    assert sm._graph is None
     assert device_mod.PRECOND_CAPTURES == captures
 
 
@@ -333,13 +350,10 @@ def test_smooth_mesh_with_the_graph_is_the_eager_run(monkeypatch):
 
 @pytest.mark.cuda
 def test_no_capture_deflated_or_sharded(monkeypatch):
-    """TURBOMESH_DEFLATION=y and a ShardedSmoother of world 1 run every
-    application eagerly: no capture, no replay."""
+    """TURBOMESH_DEFLATION=y and a ShardedSmoother of world 1 have no
+    graph and run every application eagerly (the sharded one with its
+    kept context): no capture, no replay."""
     _needs_card()
-    import torch.distributed as dist
-
-    from turbomesh_tpu_torch.parallel import ShardedSmoother
-
     mesh = _mesh("small")
     info = classify(mesh)
     cf = White(ds_target=1e-4).init(mesh)
@@ -348,13 +362,13 @@ def test_no_capture_deflated_or_sharded(monkeypatch):
         mp.setenv("TURBOMESH_DEFLATION", "y")
         sm = DeviceSmoother(mesh, info, device="cuda")
         sm.solve(mesh.flat_coords(), cf)
-        assert sm._graph.applications == 0
+        assert sm._graph is None
     sh = ShardedSmoother(mesh, info, device="cuda")
     try:
         sh.solve(mesh.flat_coords(), cf)
     finally:
         dist.destroy_process_group()
-    assert sh._graph is None and sh._ctx is None
+    assert sh._graph is None and sh._ctx is not None
     assert (device_mod.PRECOND_CAPTURES,
             device_mod.PRECOND_REPLAYS) == n
 

@@ -172,11 +172,11 @@ def test_chain_exchange_stays_neighbour_bound():
 # ---------------------------------------------------------------------------
 
 
-def test_vcycle_local_glue_fns_bit_identical():
-    """glue_fns / masks / maps that do what the levels' own maps do give
-    the same hierarchy and V-cycle, bit for bit (even lattice: mapped
-    levels; no sliding or junction rows, so the correction glue is the
-    plain map)."""
+def test_vcycle_local_glue_bit_identical():
+    """Glue, masks and maps that a caller supplies (``glued_level_statics``)
+    and that do what the levels' own maps do give the same hierarchy and
+    V-cycle, bit for bit (even lattice: mapped levels; no sliding or
+    junction rows, so the correction glue is the plain map)."""
     mesh = build("even", PORT)
     dev = DeviceSmoother(mesh, classify(mesh), device="cpu")
     p = dev.plan
@@ -192,18 +192,31 @@ def test_vcycle_local_glue_fns_bit_identical():
         assert torch.equal(gl["gcdst"], gl["gdst"])
         assert gl["gjdst"].shape[0] == 0
 
-    def local_glue(gl):
-        return lambda v, coord_field: tmg._glue_pad(
-            v, gl["gsrc"], gl["gdst"], gl["goff"].to(v.dtype), coord_field)
+    class LocalGlue:
+        """The glue interface written out over a level's plain map."""
 
-    fns = [local_glue(gl) for gl in gd]
+        def __init__(self, gl):
+            self.gl = gl
+
+        def pad(self, v, coord_field=False):
+            vg = torch.nn.functional.pad(v, (0, 0, 1, 1, 1, 1))
+            vf = vg.reshape(-1, v.shape[-1])
+            vals = vf[self.gl["gsrc"]]
+            if coord_field:
+                vals = vals + self.gl["goff"].to(v.dtype)
+            vf.index_copy_(0, self.gl["gdst"], vals)
+            return vg
+
+        def correction(self, v):
+            return self.pad(v)
+
     maps = [{k: gl[k] for k in tmg.MAP_KEYS} if "li_map" in gl else None
             for gl in gd]
     assert any(mp is not None for mp in maps)
     ref = tmg.build_glued_levels(base32, cf32, gd)
-    got = tmg.build_glued_levels(base32, cf32, gd, glue_fns=fns,
-                                 masks=[gl["smooth_mask"] for gl in gd],
-                                 maps=maps)
+    got = list(tmg.iter_glued_levels(base32, cf32, tmg.glued_level_statics(
+        [LocalGlue(gl) for gl in gd], [gl["smooth_mask"] for gl in gd],
+        maps, torch.float32)))
     for a, b in zip(ref, got):
         assert torch.equal(a["baseg"], b["baseg"])
         for k in ("bx", "by", "cfp", "cfq", "msk"):
@@ -211,7 +224,7 @@ def test_vcycle_local_glue_fns_bit_identical():
     r = torch.as_tensor(rng.standard_normal((p.B, p.N, p.M, 2)),
                         dtype=torch.float32)
     z0 = tmg.v_cycle_glued(ref, r)
-    z1 = tmg.v_cycle_glued(got, r, glue_fns=fns)
+    z1 = tmg.v_cycle_glued(got, r)
     assert torch.equal(z0, z1)
     assert float(z0.abs().max()) > 0
 
@@ -248,10 +261,11 @@ def test_duplicate_glue_destinations_last_entry_wins(world1):
     jax_glued = np.asarray(vf.at[ldst[0]].add(
         jnp.where(lval[0][:, None], val - vf[ldst[0]], 0.0)))
 
-    port = sm._glue_fn(0)(torch.as_tensor(v), True).reshape(-1, 2).numpy()
+    port = sm._rank_glue(0, torch.float64).pad(
+        torch.as_tensor(v), True).reshape(-1, 2).numpy()
     prep = tmg.prep_glue_arrays([gl], "cpu")[0]
-    single = tmg._glue_pad(torch.as_tensor(v), prep["gsrc"], prep["gdst"],
-                           prep["goff"], True).reshape(-1, 2).numpy()
+    single = tmg.MapGlue.from_prep(prep, torch.float64).pad(
+        torch.as_tensor(v), True).reshape(-1, 2).numpy()
     np.testing.assert_array_equal(port, single)
 
     cur = np.pad(v, ((0, 0), (1, 1), (1, 1), (0, 0))).reshape(-1, 2)

@@ -1,9 +1,10 @@
 """The sharded V-cycle's correction glue and the sharded deflation.
 
-``ShardedSmoother``'s per-level glue has a correction variant with the
-sliding and junction embeddings of the single-device correction glue
-(``multigrid._glue_correction``): at a world of 1 the sharded V-cycle
-equals the single-device V-cycle on the logical frame bit for bit. The
+``ShardedSmoother``'s per-level glue (``shard.ShardGlue``) glues
+corrections with the sliding and junction embeddings of the single-device
+correction glue (``multigrid.MapGlue.correction``): at a world of 1 the
+sharded V-cycle equals the single-device V-cycle on the logical frame bit
+for bit. The
 sharded coarse-space deflation ("y") on a gloo world of 2 stays within
 1e-9 of the host oracle (tests/test_sharded_solver.py::
 test_sharded_deflation_optin_parity); the junction mode raises there.
@@ -24,11 +25,21 @@ from turbomesh_tpu_torch.smoothing.classify import classify
 from turbomesh_tpu_torch.smoothing.control_function import Laplace, White
 from turbomesh_tpu_torch.smoothing.glue import build_glue
 
-from test_torch_bench import _cut_cascade
+from chip_smoke import scaled_t106_config
 from test_torch_frontend import ROOT, SMALL_O4H
 from test_torch_shard import PORT, _block, _oracle, world1  # noqa: F401
 
 torch.set_num_threads(1)
+
+
+def _cut_cascade():
+    """The scaled T106 cascade at scale 1 with every cell count cut to
+    0.3 (2,501 points): sliding and junction rows at every level."""
+    cfg = scaled_t106_config(1)
+    cells = cfg["template"]["O4H"]["num_cells"]
+    for k in cells:
+        cells[k] = max(2, int(cells[k] * 0.3))
+    return cfg
 
 
 def _mesh(case):
@@ -42,9 +53,9 @@ def test_world_of_one_vcycle_bit_identical(world1, case):
     """The sharded hierarchy and V-cycle at a world of 1 against the
     single-device ones built on the logical frame (``build_plan(...,
     transpose=False)``, the sharded layout's), on the same f32 base and
-    cf: bit for bit. The plain glue alone (no correction variant) gives a
-    different V-cycle on these meshes, which have sliding and junction
-    rows at every level."""
+    cf: bit for bit. The plain glue alone (``pad`` in place of
+    ``correction``) gives a different V-cycle on these meshes, which have
+    sliding and junction rows at every level."""
     mesh = _mesh(case)
     info = classify(mesh)
     sm = ShardedSmoother(mesh, info, device="cpu")
@@ -57,23 +68,25 @@ def test_world_of_one_vcycle_bit_identical(world1, case):
     assert all(len(gl.jdst) and len(gl.cdst) for gl in glue)
     gd = tmg.prep_glue_arrays(glue, "cpu")
     ref = tmg.build_glued_levels(base32, cf32, gd)
-    got, fns = sm._glued_levels(base32, cf32)
+    got = list(tmg.iter_glued_levels(base32, cf32, sm._mg_static))
+    assert all(isinstance(b["glue"], shard.ShardGlue) for b in got)
     r = torch.as_tensor(np.random.default_rng(2).standard_normal(
         (B, N, M, 2)), dtype=torch.float32)
     z_ref = tmg.v_cycle_glued(ref, r)
-    z_got = tmg.v_cycle_glued(got, r, glue_fns=fns)
+    z_got = tmg.v_cycle_glued(got, r)
     assert float(z_ref.abs().max()) > 0
     assert torch.equal(z_got, z_ref)
     for lvl, (a, b) in enumerate(zip(ref, got)):
         v = torch.as_tensor(np.random.default_rng(lvl).standard_normal(
             tuple(a["interior"].shape) + (2,)), dtype=torch.float32)
-        assert torch.equal(tmg._glue_correction(b, v, fns[lvl]),
-                           tmg._glue_correction(a, v))
+        assert torch.equal(b["glue"].correction(v), a["glue"].correction(v))
 
-    def plain(fn):
-        return lambda v, coord_field=False: fn(v, coord_field)
+    class Plain:
+        def __init__(self, glue):
+            self.pad = self.correction = glue.pad
 
-    z_plain = tmg.v_cycle_glued(got, r, glue_fns=[plain(f) for f in fns])
+    z_plain = tmg.v_cycle_glued([dict(b, glue=Plain(b["glue"]))
+                                 for b in got], r)
     assert not torch.equal(z_plain, z_ref)
 
 

@@ -7,10 +7,12 @@ which runs the plain version ``red_black_sor_ref`` on CPU tensors.
 ``tiled_red_black_sor`` emulates the SOR kernel's order of work (tiles
 and halos, several half-sweeps a launch) on the CPU. The ``cuda``-marked
 tests hold the CUDA kernels against their plain versions on the card and
-skip without one.
+skip without one. Neither module imports JAX.
 """
 
 import math
+import subprocess
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,8 @@ from turbomesh_tpu.ops.sor import red_black_sor as jax_red_black_sor
 from turbomesh_tpu_torch.clustering import Uniform
 from turbomesh_tpu_torch.ops import probe as probe_mod
 from turbomesh_tpu_torch.ops import sor
+
+from test_torch_frontend import _no_jax_env
 
 torch.set_num_threads(1)
 
@@ -360,3 +364,13 @@ def test_kernels_match_plain_on_card():
             err = float((got.double() - want).abs().max()
                         / want.abs().max())
             assert err <= bar, (n, m, dtype, err)
+
+
+def test_sor_and_probe_import_no_jax():
+    code = ("import sys\n"
+            "import turbomesh_tpu_torch.ops.sor\n"
+            "import turbomesh_tpu_torch.ops.probe\n"
+            "assert 'jax' not in sys.modules, 'the port imported jax'\n")
+    res = subprocess.run([sys.executable, "-c", code], env=_no_jax_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]

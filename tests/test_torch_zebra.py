@@ -287,11 +287,11 @@ def test_glue_correction_matches_jax(glued_levels):
     v = rng.standard_normal(tuple(tl["interior"].shape) + (2,)).astype(
         np.float32)
     want = np.asarray(jmg._glue_correction(jl, jnp.asarray(v)))
-    got = tmg._glue_correction(tl, torch.as_tensor(v)).numpy()
+    got = tl["glue"].correction(torch.as_tensor(v)).numpy()
     # copies are exact; junction means are K-term sums whose order
     # differs between the two reductions (1 ulp)
     jrows = np.zeros(want.shape[:3], bool).reshape(-1)
-    jrows[tl["gjdst"].numpy()] = True
+    jrows[tl["glue"].jdst.numpy()] = True
     jrows = jrows.reshape(want.shape[:3])
     assert jrows.any()
     np.testing.assert_array_equal(got[~jrows], want[~jrows])

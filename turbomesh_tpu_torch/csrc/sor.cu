@@ -58,7 +58,7 @@
 // coefficients, 36 B in f32 and 72 B in f64, and a parity byte a row and a
 // column; 216 KB in f64 at the larger grown tile of ops/sor.py
 // sor_schedule, 48 x 64 points: 16 x 32 tiles and s = 16 where the block
-// has few tiles (the bench's 256 x 256: 128 CTAs), 32 x 48 (made even
+// has few tiles (a 256 x 256 block: 128 CTAs), 32 x 48 (made even
 // across the block: 32 x 42 at the scale-4 block 881 x 161, 112 CTAs) and
 // s = 8 where it has enough for three quarters of the SMs.
 //

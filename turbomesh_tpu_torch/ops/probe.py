@@ -5,8 +5,8 @@ turbomesh_tpu/ops/zebra.py ``pallas_service_ok``. There it decided whether
 the Pallas kernels ran at all; here it decides nothing. ``probe`` launches
 the hand-written kernel ``csrc/probe.cu`` for a CUDA tensor and raises
 when the build or the launch fails; a CPU tensor runs the plain version
-``probe_ref``. chip_smoke.py and the port's bench launch it first, so a
-broken toolchain shows before any real work.
+``probe_ref``. chip_smoke.py launches it first, so a broken toolchain
+shows before any real work.
 """
 
 from __future__ import annotations

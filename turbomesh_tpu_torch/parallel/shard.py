@@ -16,11 +16,11 @@ maps of every multigrid level); each rank keeps its own slice.
 
 The solve is the single-device one: ``ShardedSmoother`` subclasses
 ``DeviceSmoother`` and overrides only what moves data across ranks (the
-stage-S and stage-F exchanges, the dot product, the per-level glue
-closures of the V-cycle, the host transfers and the control-function
-update). Every rank runs the same f64 FGMRES, the same f32 composition
+stage-S and stage-F exchanges, the dot product, the V-cycle's per-level
+glue ``ShardGlue``, the host transfers and the control-function update).
+Every rank runs the same f64 FGMRES, the same f32 composition
 ``_stage_Minv`` (Schur or base, ``mg_opts``) and the same zebra kernel on
-its slice.
+its slice, eagerly: the sharded path captures no CUDA graph.
 
 Counterpart of turbomesh_tpu/parallel/shard.py (``ShardedSmoother``).
 """
@@ -33,11 +33,11 @@ import types
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from . import dist as pdist
 from ..smoothing.classify import BoundaryInfo
 from ..smoothing.device import DeviceSmoother, build_plan, plan_tensors
+from ..smoothing.multigrid import MapGlue, glued_level_statics
 
 
 @dataclasses.dataclass
@@ -407,7 +407,7 @@ class ShardLayout:
             self.glue_corr.append(self._split_correction(gl))
 
     def _split_correction(self, gl):
-        """Level ``gl``'s CORRECTION glue (multigrid._glue_correction) cut
+        """Level ``gl``'s CORRECTION glue (multigrid.MapGlue.correction) cut
         into rank slices: the plain map made unique per destination (last
         entry wins), minus the destinations a sliding (``c*``) or junction
         (``j*``) entry owns, plus those entries, as ``prep_glue_arrays``
@@ -489,6 +489,51 @@ class ShardLayout:
         return loc, crs
 
 
+class ShardGlue(MapGlue):
+    """A level's glue on one rank: ``MapGlue``'s arithmetic, with every
+    source either a local ghost-space index (``src``, ``csrc``, ``jsrc``)
+    or a position in the values the level's exchange brings from the
+    other ranks (``pos``, ``cpos``; ``jpos`` where ``jrem``). Each call
+    makes one exchange, on every rank: ``ex``/``send`` for ``pad``,
+    ``cex``/``csend`` for ``correction``. Destinations are written from
+    local sources first, then exchanged ones; junction members keep the
+    single-device order, so a world of 1 glues as one device does."""
+
+    def __init__(self, plain, corr, dtype, tensor, send):
+        """plain, corr: this rank's plain and correction tables
+        (ShardedSmoother._rank_glue); tensor(a, dtype) puts an array on
+        the rank's device, send(ex) the rank's send indices of an
+        exchange; weights and offsets in ``dtype``."""
+        def idx(a):
+            return tensor(a, torch.int64)
+
+        super().__init__(idx(plain["src"]), idx(plain["dst"]),
+                         tensor(plain["off"], dtype),
+                         idx(corr["src"]), idx(corr["dst"]),
+                         tensor(corr["w"], dtype),
+                         idx(corr["jdst"]), idx(corr["jloc"]),
+                         tensor(corr["jw"], dtype))
+        self.pos, self.cpos = idx(plain["pos"]), idx(corr["pos"])
+        self.jpos = idx(corr["jpos"])
+        self.jrem = tensor(corr["jrem"], torch.bool)
+        self.ex, self.send = plain["ex"], send(plain["ex"])
+        self.cex, self.csend = corr["ex"], send(corr["ex"])
+
+    def _frame(self, v, corr):
+        vf, shape, _ = super()._frame(v, corr)
+        ex, send = (self.cex, self.csend) if corr else (self.ex, self.send)
+        return vf, shape, pdist.exchange(ex, send,
+                                         v.reshape(-1, v.shape[-1]))
+
+    def _copies(self, vf, far, corr):
+        return torch.cat([super()._copies(vf, far, corr),
+                          far[self.cpos if corr else self.pos]], dim=0)
+
+    def _members(self, vf, far):
+        return torch.where(self.jrem[..., None], far[self.jpos],
+                           super()._members(vf, far))
+
+
 class ShardedSmoother(DeviceSmoother):
     """Block-sharded multi-GPU drop-in for DeviceSmoother: one rank of a
     ``torch.distributed`` group (initialised from torchrun's environment
@@ -541,15 +586,15 @@ class ShardedSmoother(DeviceSmoother):
         self._p32 = tens["p32"]
         self._send_S = self._send(lay.ex_S)
         self._send_F = self._send(lay.ex_F)
-        self._glue = [self._rank_glue(lvl)
-                      for lvl in range(len(lay.glue_levels))]
-        self._mg_masks = [self._t(m[self._lo:self._hi]) for m in lay.mg_masks]
-        self._mg_maps = [
-            None if mp is None else
-            {k: self._t(v[self._lo:self._hi],
-                        torch.float64 if k.endswith("_w") else torch.int64)
-             for k, v in mp.items()}
-            for mp in lay.mg_maps]
+        self._mg_static = glued_level_statics(
+            [self._rank_glue(lvl, torch.float32)
+             for lvl in range(len(lay.glue_levels))],
+            [self._t(m[self._lo:self._hi]) for m in lay.mg_masks],
+            [None if mp is None else
+             {k: self._t(v[self._lo:self._hi],
+                         torch.float64 if k.endswith("_w") else torch.int64)
+              for k, v in mp.items()}
+             for mp in lay.mg_maps], torch.float32)
         # logical-frame block extents; padding blocks are empty (keep = 0)
         sizes = [b.size for b in mesh.blocks]
         sizes += [(0, 0)] * (lay.B - len(sizes))
@@ -595,29 +640,24 @@ class ShardedSmoother(DeviceSmoother):
             sl_row=sp.sl_row[r, :nsl], sl_master=sp.sl_master_v[r, :nsl],
             sl_off=sp.sl_off[r, :nsl])
 
-    def _rank_glue(self, lvl):
-        """Level ``lvl``'s glue for this rank: the local (ghost-space src
+    def _rank_glue(self, lvl, dtype):
+        """Level ``lvl``'s ``ShardGlue`` for this rank, weights and
+        offsets in ``dtype``: of the plain map the local (ghost-space src
         -> dst) and cross-rank (exchange position -> dst) entries that are
-        valid and write their destination last."""
+        valid and write their destination last, and the rank's slice of
+        the correction map (ShardLayout._split_correction)."""
         lay, r = self.layout, self.rank
         (lsrc, ldst, loff), lvalid = lay.glue_local[lvl]
         (xdst, xpos, xoff), xvalid = lay.glue_cross[lvl]
         lkeep, xkeep = lay.glue_last_wins(lvl)
         lk = lvalid[r] & lkeep[r]
         xk = xvalid[r] & xkeep[r]
-        ex = lay.glue_ex[lvl]
         cex, crank = lay.glue_corr[lvl]
-        corr = {k: self._t(v, torch.float64 if k in ("w", "jw") else None)
-                for k, v in crank[r].items()}
-        corr.update(ex=cex, send=self._send(cex))
-        return dict(ex=ex, send=self._send(ex),
-                    src=self._t(lsrc[r][lk], torch.int64),
-                    pos=self._t(xpos[r][xk], torch.int64),
-                    dst=self._t(np.concatenate([ldst[r][lk], xdst[r][xk]]),
-                                torch.int64),
-                    off=self._t(np.concatenate([loff[r][lk], xoff[r][xk]]),
-                                torch.float64),
-                    corr=corr)
+        plain = dict(ex=lay.glue_ex[lvl], src=lsrc[r][lk], pos=xpos[r][xk],
+                     dst=np.concatenate([ldst[r][lk], xdst[r][xk]]),
+                     off=np.concatenate([loff[r][lk], xoff[r][xk]]))
+        return ShardGlue(plain, dict(crank[r], ex=cex), dtype, self._t,
+                         self._send)
 
     # -- the hooks of DeviceSmoother -----------------------------------------
 
@@ -635,60 +675,6 @@ class ShardedSmoother(DeviceSmoother):
 
     def _coarse_vector(self, part):
         return pdist.all_gather_stack(part).reshape(-1)
-
-    def _glue_fn(self, lvl):
-        """Level ``lvl``'s glue: pad one ghost ring, then write every
-        destination from a local ghost-space source or from this level's
-        exchange table (one exchange a call, on every rank). Coordinate
-        and residual fields take the plain map; ``glue.correction(v)``
-        glues a correction field with the sliding and junction embeddings
-        too (multigrid._glue_correction), in the single-device arithmetic:
-        weights times the sources, junction masters the ``jw``-weighted
-        sum of their members in the same order."""
-        g = self._glue[lvl]
-        c = g["corr"]
-
-        def framed(v, table):
-            """(ghost-padded v, its flat view, the exchanged values)"""
-            C = v.shape[-1]
-            vg = F.pad(v, (0, 0, 1, 1, 1, 1))
-            VAL = pdist.exchange(table["ex"], table["send"], v.reshape(-1, C))
-            return vg, vg.reshape(-1, C), VAL
-
-        def glue(v, coord_field=False):
-            vg, vf, VAL = framed(v, g)
-            vals = torch.cat([vf[g["src"]], VAL[g["pos"]]], dim=0)
-            if coord_field:
-                vals = vals + g["off"].to(v.dtype)
-            vf.index_copy_(0, g["dst"], vals)
-            return vg
-
-        def correction(v):
-            vg, vf, VAL = framed(v, c)
-            vals = c["w"].to(v.dtype) * torch.cat([vf[c["src"]],
-                                                   VAL[c["pos"]]], dim=0)
-            dst = c["dst"]
-            if c["jdst"].shape[0]:
-                members = torch.where(c["jrem"][..., None], VAL[c["jpos"]],
-                                      vf[c["jloc"]])
-                jvals = torch.sum(c["jw"].to(v.dtype)[..., None] * members,
-                                  dim=1)
-                vals = torch.cat([vals, jvals], dim=0)
-                dst = torch.cat([dst, c["jdst"]], dim=0)
-            vf.index_copy_(0, dst, vals)
-            return vg
-
-        glue.correction = correction
-        return glue
-
-    def _glued_levels(self, baseX32, cf32):
-        from ..smoothing.multigrid import build_glued_levels
-
-        fns = [self._glue_fn(lvl) for lvl in range(len(self._glue))]
-        levels = build_glued_levels(baseX32, cf32, self.layout.glue_levels,
-                                    glue_fns=fns, masks=self._mg_masks,
-                                    maps=self._mg_maps)
-        return levels, fns
 
     # -- host transfers and the control-function update --------------------
 

@@ -386,6 +386,12 @@ def _defl_basis_arrays(block_sizes, N, M, free_mask, comps):
     return FU, FV, keep
 
 
+def _adaptive_rtol_env():
+    """TURBOMESH_ADAPTIVE_RTOL as the JAX package reads it: run's adaptive
+    forcing may apply only where the variable is "1" or unset."""
+    return os.environ.get("TURBOMESH_ADAPTIVE_RTOL", "1") == "1"
+
+
 def _write_into(kept, fresh):
     """Copy every tensor of ``fresh`` (tensors in dicts, tuples and lists)
     into the tensor at the same place of ``kept``, the same structure;
@@ -488,9 +494,11 @@ class DeviceSmoother:
 
     The block-sharded smoother (parallel/shard.py) is a subclass: it
     overrides the hooks that move data across blocks (``_remote_S``,
-    ``_remote_F``, ``_dot``, ``_norm``, ``_glued_levels``), the host
-    transfers and the control-function update, and runs every stage,
-    the preconditioner composition and the Picard loop written here."""
+    ``_remote_F``, ``_dot``, ``_norm``, ``_coarse_vector``), builds its
+    own multigrid statics (``_mg_static``, with glue that exchanges
+    across ranks), the host transfers and the control-function update,
+    and runs every stage, the preconditioner composition and the Picard
+    loop written here."""
 
     #: inexact Picard with a target residual (run); the sharded loop keeps
     #: a fixed tolerance, as the JAX package's does
@@ -508,7 +516,7 @@ class DeviceSmoother:
     #: schur: the Schur composition of _stage_Minv (True) or the base one
     #: (False); None reads TURBOMESH_SCHUR (default "1");
     #: adaptive_rtol: the adaptive forcing of run (TURBOMESH_ADAPTIVE_RTOL
-    #: = "0" also turns it off).
+    #: other than "1" also turns it off: _adaptive_rtol_env).
     MG_DEFAULTS = dict(pre=1, post=1, coarse_iters=4,
                        pre_dirs="ij", post_dirs="ij", n_levels=None,
                        deflation=None, interface_passes=2, schur=None,
@@ -517,10 +525,12 @@ class DeviceSmoother:
     SCHEDULE_KEYS = ("pre", "post", "coarse_iters", "pre_dirs", "post_dirs",
                      "n_levels")
     #: the f32 context that _stage_prepare32 writes every solve into (the
-    #: first solve's), where the smoother glues with its own maps; the
-    #: preconditioner's CUDA graph reads it (_apply_Minv)
+    #: first solve's); the preconditioner's CUDA graph reads it
+    #: (_apply_Minv)
     _ctx = None
-    #: the _PrecondGraph of _apply_Minv
+    #: the _PrecondGraph of _apply_Minv: on a CUDA device without
+    #: deflation only (the sharded subclass has none: its collectives
+    #: stay eager)
     _graph = None
 
     def __init__(self, mesh, info: BoundaryInfo, *, device,
@@ -541,7 +551,7 @@ class DeviceSmoother:
         both). max_iters: FGMRES iterations in all, the JAX package's
         alias of max_restarts = max(1, max_iters // restart)."""
         from .glue import build_glue
-        from .multigrid import glued_level_statics, prep_glue_arrays
+        from .multigrid import map_level_statics, prep_glue_arrays
 
         self.device = torch.device(device)
         with span("solver_setup.plan"):
@@ -578,9 +588,10 @@ class DeviceSmoother:
                               n_levels=self.mg_opts["n_levels"],
                               transposed=p.transposed, keep_boundaries=True)
             self._glue_dev = prep_glue_arrays(glue, self.device)
-            self._mg_static = glued_level_statics(self._glue_dev,
-                                                  torch.float32)
-        self._graph = _PrecondGraph()
+            self._mg_static = map_level_statics(self._glue_dev,
+                                                torch.float32)
+        if self.device.type == "cuda" and not self._defl_K:
+            self._graph = _PrecondGraph()
         self.last_linear_residual = float("nan")
         self.last_linear_converged = False
         self.last_restarts = 0
@@ -822,32 +833,18 @@ class DeviceSmoother:
         Xf1 = baseF + torch.where(free64, delta, _zero(delta))
         return self._substitute(Xf1, 1.0)
 
-    def _glued_levels(self, baseX32, cf32):
-        """(glued multigrid levels, per-level glue callables or None).
-        Once the smoother keeps a context, each level is written into the
-        kept one as it is built, and those are returned."""
-        from .multigrid import iter_glued_levels
-
-        levels = iter_glued_levels(baseX32, cf32, self._glue_dev,
-                                   statics=self._mg_static)
-        if self._ctx is None:
-            return list(levels), None
-        kept = self._ctx["mg"]
-        for lvl, level in enumerate(levels):
-            _write_into(kept[lvl], level)
-        return kept, None
-
     def _stage_prepare32(self, baseF, cf_pad):
         """f32 inner-solver context: diagonal, chain factors, glued
         multigrid levels and the f64-differenced operator metrics.
 
-        With the smoother's own glue (``glue_fns`` None) the first
-        context is kept (``_ctx``), and every later solve writes its
-        values into the kept tensors and returns that context: its
-        tensors keep their addresses for the life of the smoother, as the
-        preconditioner's CUDA graph needs (_apply_Minv). The parts that
-        depend on the mesh alone are built once (``glued_level_statics``).
-        """
+        The first context is kept (``_ctx``), and every later solve
+        writes its values into the kept tensors (each multigrid level as
+        it is built) and returns that context: its tensors keep their
+        addresses for the life of the smoother, as the preconditioner's
+        CUDA graph needs (_apply_Minv). The parts that depend on the mesh
+        alone are built once (``_mg_static``)."""
+        from .multigrid import iter_glued_levels
+
         p32 = self._p32
         B, N, M = self._shape
         baseV = self._remote_F(baseF)
@@ -863,7 +860,13 @@ class DeviceSmoother:
         ch = (cg22 * (1 - 0.5 * Pq), -2.0 * cg22 - 2.0 * cg11,
               cg22 * (1 + 0.5 * Pq))
 
-        levels, glue_fns = self._glued_levels(baseX32, cf32)
+        levels = iter_glued_levels(baseX32, cf32, self._mg_static)
+        if self._ctx is None:
+            levels = list(levels)
+        else:
+            for kept, level in zip(self._ctx["mg"], levels):
+                _write_into(kept, level)
+            levels = self._ctx["mg"]
 
         # f64-differenced, f32-stored operator metrics: the f32 inner
         # operator's coefficients are formed by differencing the f64 frozen
@@ -878,14 +881,12 @@ class DeviceSmoother:
         cG64 = self._conn_metrics(baseF, baseV)
 
         ctx = dict(baseF32=baseF32, cf32=cf32, diag=diag_field, chain=ch,
-                   G=G, cG=cG64.to(torch.float32), cG64=cG64, mg=levels,
-                   glue_fns=glue_fns)
-        if glue_fns is None:
-            if self._ctx is None:
-                self._ctx = ctx
-            else:
-                _write_into(self._ctx, ctx)
-                ctx = self._ctx
+                   G=G, cG=cG64.to(torch.float32), cG64=cG64, mg=levels)
+        if self._ctx is None:
+            self._ctx = ctx
+        else:
+            _write_into(self._ctx, ctx)
+            ctx = self._ctx
         if self._defl_K:
             ctx["defl"] = self._defl_galerkin(ctx)
         return ctx
@@ -999,8 +1000,7 @@ class DeviceSmoother:
             z = v_cycle_glued(levels, torch.where(mask, v, zero),
                               pre=o["pre"], post=o["post"],
                               coarse_iters=o["coarse_iters"],
-                              pre_dirs=o["pre_dirs"], post_dirs=o["post_dirs"],
-                              glue_fns=ctx["glue_fns"])
+                              pre_dirs=o["pre_dirs"], post_dirs=o["post_dirs"])
             z = torch.where(mask & self._p32["free_mask"], z, zero)
             return z.reshape(-1, 2)
 
@@ -1088,13 +1088,11 @@ class DeviceSmoother:
 
     def _apply_Minv(self, ctx, vflat):
         """One preconditioner application, ``_stage_Minv(ctx, vflat)``:
-        through the smoother's CUDA graph where the context is the
-        smoother's kept one (which exists only where it glues with its own
-        maps), on CUDA tensors and without deflation; eagerly otherwise
-        (the CPU, the sharded path, the deflated one). The result may be
-        the graph's static output, which the next application overwrites:
-        the caller copies it."""
-        if not vflat.is_cuda or ctx is not self._ctx or "defl" in ctx:
+        through the smoother's CUDA graph where it has one (``_graph``),
+        eagerly otherwise (the CPU, the deflated path, the sharded one).
+        The result may be the graph's static output, which the next
+        application overwrites: the caller copies it."""
+        if self._graph is None:
             return self._stage_Minv(ctx, vflat)
         return self._graph(self._stage_Minv, ctx, vflat)
 
@@ -1222,10 +1220,10 @@ class DeviceSmoother:
         # reference's own semantics, smooth.zig:104) keep the fixed
         # tolerance, and so does every run of a class without
         # ``adaptive_forcing``, with mg_opts ``adaptive_rtol`` False or with
-        # TURBOMESH_ADAPTIVE_RTOL=0.
+        # TURBOMESH_ADAPTIVE_RTOL set to anything but "1".
         adaptive = (self.adaptive_forcing and target_residual is not None
                     and bool(self.mg_opts["adaptive_rtol"])
-                    and os.environ.get("TURBOMESH_ADAPTIVE_RTOL", "1") != "0")
+                    and _adaptive_rtol_env())
         eta_loose = max(self.rtol, 1e-2)
         #: per-iteration linear-solve tolerances of the last run()
         self.last_run_rtols = []

@@ -9,8 +9,11 @@ block interfaces are damped by the hierarchy instead of being left to the
 Krylov iteration. The smoother is zebra line relaxation, one
 ``ops.zebra.zebra_half_sweep`` per (direction, color).
 
-Levels are plain dicts of tensors. Counterpart of the glued half of
-turbomesh_tpu/smoothing/multigrid.py (prep_glue_arrays .. v_cycle_glued).
+Levels are plain dicts of tensors, each with its glue: an object with
+``pad`` and ``correction`` (``MapGlue`` on one device, the sharded path's
+``ShardGlue``), which the V-cycle calls without knowing which it is.
+Counterpart of the glued half of turbomesh_tpu/smoothing/multigrid.py
+(prep_glue_arrays .. v_cycle_glued).
 """
 
 from __future__ import annotations
@@ -85,21 +88,86 @@ def _pad1(a, value=0.0):
     return F.pad(a, (1, 1, 1, 1), value=value)
 
 
-def glued_level_statics(glue_levels, dtype, masks=None, maps=None,
-                        own_glue=True):
-    """The part of each level of ``build_glued_levels`` that depends on
-    the mesh alone: the smooth mask (``interior``), the ghost-framed mask
-    and color selectors of the zebra planes in ``dtype``, with
-    ``own_glue`` the level's glue indices and its glue weights cast to
-    ``dtype``, and the transfer maps of boundary-aligned levels.
-    ``glue_levels``, ``masks``, ``maps`` as in ``build_glued_levels``."""
+class MapGlue:
+    """A level's glue on one device: one ghost ring around every block,
+    filled (with the slave rows) from sources in the level's own
+    ghost-framed field over the unique-destination maps of
+    ``prep_glue_arrays``, whose weights and offsets are cast to the
+    level's dtype here, once. ``pad(v, coord_field)`` glues coordinate
+    (with the periodic offsets) and residual fields with the plain map;
+    ``correction(v)`` glues a correction field.
+
+    The correction glue adds the correction-only embeddings (glue.py
+    GlueLevel.c*/j*): junction masters take the mean of their members'
+    interior-neighbor corrections, and sliding points copy the
+    y-correction of their level-local first interior neighbor (x forced
+    to 0). Each call is one gather and one scatter over a map with
+    unique destinations; values read the pre-scatter field. Never apply
+    it to coordinate or residual fields.
+
+    The block-sharded glue (parallel.shard.ShardGlue) keeps this
+    arithmetic and overrides where the sources are read: ``_frame``,
+    ``_copies`` and ``_members``."""
+
+    def __init__(self, src, dst, off, csrc, cdst, cw, jdst, jsrc, jw):
+        self.src, self.dst, self.off = src, dst, off
+        self.csrc, self.cdst, self.cw = csrc, cdst, cw
+        self.jdst, self.jsrc, self.jw = jdst, jsrc, jw
+
+    @classmethod
+    def from_prep(cls, gl, dtype):
+        """The glue of ``gl``, one level of ``prep_glue_arrays``."""
+        return cls(gl["gsrc"], gl["gdst"], gl["goff"].to(dtype),
+                   gl["gcsrc"], gl["gcdst"], gl["gcw"].to(dtype),
+                   gl["gjdst"], gl["gjsrc"], gl["gjw"].to(dtype))
+
+    def _frame(self, v, corr):
+        """(the flat view of ``v`` padded by one ghost ring, the padded
+        shape, the values the sources read besides it: none here)"""
+        vg = F.pad(v, (0, 0, 1, 1, 1, 1))
+        return vg.reshape(-1, v.shape[-1]), vg.shape, None
+
+    def _copies(self, vf, far, corr):
+        """The sources of the copy entries (``corr``: of the correction
+        glue) in the padded flat field ``vf``."""
+        return vf[self.csrc if corr else self.src]
+
+    def _members(self, vf, far):
+        """The junction masters' members (L, K, C)."""
+        return vf[self.jsrc]
+
+    def pad(self, v, coord_field=False):
+        vf, shape, far = self._frame(v, False)
+        vals = self._copies(vf, far, False)
+        if coord_field:
+            vals = vals + self.off
+        vf.index_copy_(0, self.dst, vals)
+        return vf.reshape(shape)
+
+    def correction(self, v):
+        vf, shape, far = self._frame(v, True)
+        vals = self.cw * self._copies(vf, far, True)
+        dst = self.cdst
+        if self.jdst.shape[0]:
+            jvals = torch.sum(self.jw[..., None] * self._members(vf, far),
+                              dim=1)
+            vals = torch.cat([vals, jvals], dim=0)
+            dst = torch.cat([dst, self.jdst], dim=0)
+        vf.index_copy_(0, dst, vals)
+        return vf.reshape(shape)
+
+
+def glued_level_statics(glues, masks, maps, dtype):
+    """The part of each level of the glued hierarchy that depends on the
+    mesh alone, from its caller's per-level pieces: ``glues`` the levels'
+    glue (``MapGlue`` or one with its interface), ``masks`` their smooth
+    masks (interior + SMOOTHED faces), ``maps`` their transfer maps (None
+    on a stride-2 level, else a dict of MAP_KEYS relative to the PARENT
+    level). Each level holds those, its smooth mask as ``interior`` and
+    the ghost-framed mask and color selectors of the zebra planes in
+    ``dtype``."""
     out = []
-    for lvl, gl in enumerate(glue_levels):
-        if maps is not None:
-            mp = maps[lvl]
-        else:
-            mp = {k: gl[k] for k in MAP_KEYS} if "li_map" in gl else None
-        mask = gl["smooth_mask"] if masks is None else masks[lvl]
+    for glue, mask, mp in zip(glues, masks, maps):
         B, N, M = mask.shape
         mskp = _pad1(mask.to(dtype))
         odd_i = (torch.arange(N + 2, device=mask.device) + 1) % 2
@@ -110,56 +178,46 @@ def glued_level_statics(glue_levels, dtype, masks=None, maps=None,
         def sel(odd, par):
             return (mskp * (odd == par).to(dtype)).contiguous()
 
-        rec = dict(interior=mask, zebra=dict(
+        rec = dict(interior=mask, glue=glue, zebra=dict(
             msk=mskp.contiguous(),
             sel_j=(sel(odd_j, 0.0), sel(odd_j, 1.0)),
             sel_i=(sel(odd_i, 0.0), sel(odd_i, 1.0))))
-        if own_glue:
-            rec.update(gsrc=gl["gsrc"], gdst=gl["gdst"],
-                       gcsrc=gl["gcsrc"], gcdst=gl["gcdst"],
-                       gcw=gl["gcw"].to(dtype), gjdst=gl["gjdst"],
-                       gjsrc=gl["gjsrc"], gjw=gl["gjw"].to(dtype))
         if mp is not None:
-            # transfer maps for the boundary-aligned (non-stride-2) levels,
-            # relative to the PARENT level
             rec.update(mp)
         out.append(rec)
     return out
 
 
-def build_glued_levels(base, cf, glue_levels, glue_fns=None, masks=None,
-                       maps=None):
+def map_level_statics(glue_levels, dtype):
+    """``glued_level_statics`` of one device's levels: glue, smooth masks
+    and transfer maps from ``glue_levels``, prep_glue_arrays output."""
+    return glued_level_statics(
+        [MapGlue.from_prep(gl, dtype) for gl in glue_levels],
+        [gl["smooth_mask"] for gl in glue_levels],
+        [{k: gl[k] for k in MAP_KEYS} if "li_map" in gl else None
+         for gl in glue_levels], dtype)
+
+
+def build_glued_levels(base, cf, glue_levels):
     """Build the glued hierarchy. base/cf: (B, N, M, 2) padded stacks
-    (finest); glue_levels: prep_glue_arrays output. Level fields are
+    (finest); glue_levels: prep_glue_arrays output. The JAX package's
+    entry point of the same name; the smoothers build their statics once
+    and call ``iter_glued_levels``."""
+    return list(iter_glued_levels(base, cf,
+                                  map_level_statics(glue_levels, base.dtype)))
+
+
+def iter_glued_levels(base, cf, statics):
+    """The glued hierarchy one level at a time, finest first: a caller
+    that keeps what it needs of a level lets the level's tensors go before
+    the next is built. base/cf: (B, N, M, 2) padded stacks (finest);
+    statics: ``glued_level_statics``, built once for a mesh, whose tensors
+    and glue each level holds as they are. Level fields are
     ghost-augmented where needed; stencil coefficients use the GLUED base
     so face-row equations couple across blocks. Each level also carries
-    the ghost-framed zebra planes its smoother sweeps over.
-
-    The block-sharded path gives its own per-level pieces, and then
-    ``glue_levels`` is read only for its length:
-    glue_fns: per-level callables ``fn(v, coord_field) -> ghost-augmented
-    v`` in place of the glue map (local gathers plus one cross-rank
-    exchange) for coordinates and residuals; ``fn.correction(v)``, where
-    present, glues corrections (_glue_correction).
-    masks: per-level smooth masks; maps: per-level transfer maps (None or
-    a dict of MAP_KEYS) — this rank's slices."""
-    return list(iter_glued_levels(base, cf, glue_levels, glue_fns, masks,
-                                  maps))
-
-
-def iter_glued_levels(base, cf, glue_levels, glue_fns=None, masks=None,
-                      maps=None, statics=None):
-    """``build_glued_levels`` one level at a time, finest first: a caller
-    that keeps what it needs of a level lets the level's tensors go before
-    the next is built. statics: ``glued_level_statics`` of the same
-    pieces, built once for a mesh (built here when None), whose tensors
-    each level holds as they are."""
+    the ghost-framed zebra planes its smoother sweeps over."""
     dt = base.dtype
-    if statics is None:
-        statics = glued_level_statics(glue_levels, dt, masks, maps,
-                                      own_glue=glue_fns is None)
     for lvl, st in enumerate(statics):
-        glue_fn = None if glue_fns is None else glue_fns[lvl]
         if lvl > 0:
             if "li_map" in st:
                 base = _subsample_mapped(base, st["li_map"], st["lj_map"])
@@ -168,11 +226,7 @@ def iter_glued_levels(base, cf, glue_levels, glue_fns=None, masks=None,
                 base = base[:, ::2, ::2, :]
                 cf = cf[:, ::2, ::2, :]
         mask = st["interior"]
-        if glue_fn is None:
-            baseg = _glue_pad(base, st["gsrc"], st["gdst"],
-                              glue_levels[lvl]["goff"].to(dt), True)
-        else:
-            baseg = glue_fn(base, True)
+        baseg = st["glue"].pad(base, True)
         # glued metrics over the whole block region (faces included)
         x_xi = 0.5 * (baseg[:, 2:, 1:-1] - baseg[:, :-2, 1:-1])
         x_eta = 0.5 * (baseg[:, 1:-1, 2:] - baseg[:, 1:-1, :-2])
@@ -218,50 +272,10 @@ def iter_glued_levels(base, cf, glue_levels, glue_fns=None, masks=None,
         yield dict(st, baseg=baseg, cf=cf, stencil=stencil, zebra=zebra)
 
 
-def _glue_pad(v, src, dst, off, coord_field=False):
-    """Pad (B, N, M, C) with one ghost ring and apply the glue map
-    (unique destinations: one deterministic copy)."""
-    vg = F.pad(v, (0, 0, 1, 1, 1, 1))
-    shape = vg.shape
-    vf = vg.reshape(-1, v.shape[-1])
-    vals = vf[src]
-    if coord_field:
-        vals = vals + off
-    vf.index_copy_(0, dst, vals)
-    return vf.reshape(shape)
-
-
-def _glue_correction(level, v, glue_fn=None):
-    """Glue a CORRECTION field: ghost halos + slave copies, plus the
-    correction-only embeddings (glue.py GlueLevel.c*/j*): junction
-    masters take the mean of their members' interior-neighbor
-    corrections, and sliding points copy the y-correction of their
-    level-local first interior neighbor (x forced to 0). One gather and
-    one scatter over a map with unique destinations; values read the
-    pre-scatter field. Never apply to coordinate or residual fields.
-    With ``glue_fn`` (the sharded path) its ``correction`` variant glues
-    instead; a glue callable without one (a mesh with no sliding or
-    junction rows) glues corrections with its plain map."""
-    if glue_fn is not None:
-        corr = getattr(glue_fn, "correction", None)
-        return glue_fn(v, False) if corr is None else corr(v)
-    vg = F.pad(v, (0, 0, 1, 1, 1, 1))
-    shape = vg.shape
-    vf = vg.reshape(-1, v.shape[-1])
-    vals = level["gcw"] * vf[level["gcsrc"]]
-    dst = level["gcdst"]
-    if level["gjdst"].shape[0]:
-        jvals = torch.sum(level["gjw"][..., None] * vf[level["gjsrc"]], dim=1)
-        vals = torch.cat([vals, jvals], dim=0)
-        dst = torch.cat([dst, level["gjdst"]], dim=0)
-    vf.index_copy_(0, dst, vals)
-    return vf.reshape(shape)
-
-
-def _apply_glued(level, v, glue_fn=None):
+def _apply_glued(level, v):
     """Winslow stencil over the glued field; rows = smooth mask
     (interior + SMOOTHED connection faces). v is a correction field."""
-    vg = _glue_correction(level, v, glue_fn)
+    vg = level["glue"].correction(v)
     s = level["stencil"]
     out = (
         s["c_ij"] * vg[:, 1:-1, 1:-1]
@@ -278,7 +292,7 @@ def _apply_glued(level, v, glue_fn=None):
                        torch.zeros((), dtype=out.dtype, device=out.device))
 
 
-def _smooth_glued(level, r, z, directions="ij", glue_fn=None):
+def _smooth_glued(level, r, z, directions="ij"):
     """Zebra line relaxation over the glued mesh: for each direction in
     ``directions`` ("i": lines along i colored by j parity, then "j":
     lines along j colored by i parity; "ij" runs both, "i" or "j" one at
@@ -296,7 +310,7 @@ def _smooth_glued(level, r, z, directions="ij", glue_fn=None):
     mask = level["interior"][..., None]
     zero = torch.zeros((), dtype=r.dtype, device=r.device)
     for (dl, d, du), axis, sel in passes:
-        zg = _glue_correction(level, z, glue_fn)
+        zg = level["glue"].correction(z)
         zx, zy = zebra_half_sweep(
             zb["bx"], zb["by"], zb["cfp"], zb["cfq"], dl, d, du, zb["msk"],
             sel, rx, ry, zg[..., 0].contiguous(), zg[..., 1].contiguous(),
@@ -356,16 +370,13 @@ def _prolong_mapped(zc, fine_shape, plo_i, pw_i, plo_j, pw_j):
     return z2
 
 
-def _restrict_glued(level, r, coarse, glue_fn=None):
+def _restrict_glued(level, r, coarse):
     """Full-weighting restriction using glued residual ghosts, so the
     stencil at a face point weights the partner block's residuals. When
     the coarse level carries boundary-aligned lattice maps the 3x3 stencil
     gathers at the mapped parent ordinals instead of stride-2 slicing."""
     B, Nc, Mc = coarse["interior"].shape
-    if glue_fn is None:
-        rp = _glue_pad(r, level["gsrc"], level["gdst"], None, False)
-    else:
-        rp = glue_fn(r, False)
+    rp = level["glue"].pad(r)
     im = coarse.get("li_map")
 
     if im is None:
@@ -395,15 +406,13 @@ def vcycle_half_sweeps(n_levels, pre=1, post=1, coarse_iters=4,
 
 
 def v_cycle_glued(levels, r, level_idx=0, pre=1, post=1, coarse_iters=4,
-                  pre_dirs="ij", post_dirs="ij", glue_fns=None):
+                  pre_dirs="ij", post_dirs="ij"):
     """Glued multigrid V-cycle (recursion over the level list): ``pre``
     smooths over ``pre_dirs`` before the coarse correction on each level
     and ``post`` over ``post_dirs`` after it, ``coarse_iters`` alternating
-    ("ij") smooths on the coarsest. glue_fns: per-level glue callables of
-    the sharded path (build_glued_levels), None for the levels' own glue
-    maps."""
+    ("ij") smooths on the coarsest. Each level glues with its own
+    ``glue``."""
     level = levels[level_idx]
-    gfn = None if glue_fns is None else glue_fns[level_idx]
     mask = level["interior"][..., None]
     zero = torch.zeros((), dtype=r.dtype, device=r.device)
     r = torch.where(mask, r, zero)
@@ -411,18 +420,18 @@ def v_cycle_glued(levels, r, level_idx=0, pre=1, post=1, coarse_iters=4,
 
     if level_idx == len(levels) - 1:
         for _ in range(coarse_iters):
-            z = _smooth_glued(level, r, z, glue_fn=gfn)
+            z = _smooth_glued(level, r, z)
         return z
 
     for _ in range(pre):
-        z = _smooth_glued(level, r, z, pre_dirs, glue_fn=gfn)
+        z = _smooth_glued(level, r, z, pre_dirs)
 
-    res = torch.where(mask, r - _apply_glued(level, z, gfn), zero)
+    res = torch.where(mask, r - _apply_glued(level, z), zero)
     coarse = levels[level_idx + 1]
     # undivided stencils scale as h^4, so A_c ~ 16 A_f on smooth modes
-    rc = 16.0 * _restrict_glued(level, res, coarse, gfn)
+    rc = 16.0 * _restrict_glued(level, res, coarse)
     zc = v_cycle_glued(levels, rc, level_idx + 1, pre, post, coarse_iters,
-                       pre_dirs, post_dirs, glue_fns)
+                       pre_dirs, post_dirs)
     if coarse.get("pi_lo") is not None:
         zf = _prolong_mapped(zc, tuple(level["interior"].shape),
                              coarse["pi_lo"], coarse["pi_w"],
@@ -432,5 +441,5 @@ def v_cycle_glued(levels, r, level_idx=0, pre=1, post=1, coarse_iters=4,
     z = z + torch.where(mask, zf, zero)
 
     for _ in range(post):
-        z = _smooth_glued(level, r, z, post_dirs, glue_fn=gfn)
+        z = _smooth_glued(level, r, z, post_dirs)
     return z
