@@ -7,8 +7,8 @@
 Phases (each prints its result and wall time on its own line):
   0. environment: card name and power limit, torch and CUDA versions;
      TF32 off for matmuls and cuDNN.
-  1. build the four kernels (csrc/probe.cu, zebra.cu, sor.cu, chain.cu)
-     with nvcc,
+  1. build the five kernels (csrc/probe.cu, zebra.cu, sor.cu, chain.cu,
+     winslow.cu) with nvcc,
      all at once (ptxas's registers and spills printed), then launch the
      probe first: its output must be exactly i + 1. Its time a call is
      printed beside torch.add's on the same tile, with the host cost of
@@ -104,19 +104,30 @@ Phases (each prints its result and wall time on its own line):
      through the kernel: final coordinates equal bit for bit, the same
      zebra launches, CHAIN_LAUNCHES 0 and CHAIN_LEN_T106 (63 an
      iteration), the walls, the interface span's seconds an iteration and
-     K-I's run's split by span (P12_SPANS) printed. Phases 8(b), 10(a)
+     K-I's run's split by span (P12_SPANS) printed, and the K-W launches
+     an iteration (equal in both runs); (c) the linear Winslow operator
+     K-W (csrc/winslow.cu) on the T106 plan (8, 221, 41) and the medium
+     grid's (8, 441, 81), at a seeded perturbation of the mesh and a
+     seeded control function: in f32 as the preconditioner's residual
+     (metrics G, cG) and in f64 as FGMRES's operator (cG64, the row scale
+     1 / diag), against the plain version (ops/winslow.py
+     winslow_apply_ref) on the same tensors: bit for bit outside the
+     junction rows, within WINSLOW_JUNCTION_RTOL there (whether they too
+     are bit for bit printed), one WINSLOW_LAUNCHES a call; the time a
+     call back to back (WINSLOW_RUN between CUDA events) and in a CUDA
+     graph, the plain version's and the bound. Phases 8(b), 10(a)
      and 11(a) check that the sharded ranks, the deflated solves and the
      option solves launched K-I.
  13. the preconditioner's CUDA graph (DeviceSmoother._apply_Minv): (a)
      on T106 and the medium grid (meshbench/configs/t106_x2.json), 30
      applications over two solves through the graph (eager, capture,
      replays) against the eager _stage_Minv on the same context and
-     input, bit for bit, with the eager application's zebra and chain
-     launches; one capture, 29 replays; an application's time eagerly and
+     input, bit for bit, with the eager application's zebra, chain and
+     K-W launches; one capture, 29 replays; an application's time eagerly and
      replayed (P13_RUN in a row between CUDA events); (b) the first job
      of the benchmark cells t106.design_loop and t106_x2.laplace_target
      (seed P13_SEED) through smooth_mesh with the graph and eagerly: final
-     coordinates bit for bit, the same zebra and chain launches, one
+     coordinates bit for bit, the same zebra, chain and K-W launches, one
      capture; walls, Picard iterations, the spans an iteration, the
      capture's seconds (span precond.graph.capture), the peak allocated
      and the peak reserved memory of each and the graph pool's reserved
@@ -259,6 +270,15 @@ CHAIN_LEN_T106 = 630
 # (2 multiplies, 3 subtracts, 3 divides) and the back substitution for x
 # and y (2 multiplies, 2 subtracts)
 CHAIN_FLOPS_PER_POINT = 12
+# phase 12(c): back-to-back K-W calls a timing run; the junction rows'
+# bar against the plain version, relative to their largest value (their
+# sums may round in another order than torch's reduction); flops a padded
+# point of one call (csrc/winslow.cu): f64 the metrics 17, coefficients
+# 14, the stencil of x and y 34, the scale 2; f32 without the metrics and
+# the scale
+WINSLOW_RUN = 200
+WINSLOW_JUNCTION_RTOL = {"float32": 1e-6, "float64": 1e-14}
+WINSLOW_FLOPS_PER_POINT = {"float32": 48, "float64": 67}
 # the spans whose seconds an iteration 12(b) prints (PERF.md §3)
 P12_SPANS = ("picard.solve", "solve.prepare", "fgmres.cycle",
              "fgmres.operator", "precond", "precond.vcycle",
@@ -621,6 +641,14 @@ class Smoke:
                 "replaces": "none (turbomesh_tpu/smoothing/krylov.py:333 "
                             "lax.scan, as device.py:1072 uses it)",
                 "library_ms": None},
+            # K-W replaces no Pallas kernel: the equation map that the JAX
+            # package leaves to XLA
+            "winslow_apply": {
+                "name": "winslow_apply", "route": "cuda",
+                "source": "turbomesh_tpu_torch/csrc/winslow.cu",
+                "replaces": "none (turbomesh_tpu/smoothing/device.py "
+                            "_apply, left to XLA)",
+                "library_ms": None},
         }
 
     def mesh(self, name):
@@ -666,15 +694,16 @@ class Smoke:
         from concurrent.futures import ThreadPoolExecutor
 
         torch = self.torch
-        from turbomesh_tpu_torch.ops import _build, chain, probe, sor, zebra
+        from turbomesh_tpu_torch.ops import (_build, chain, probe, sor,
+                                             winslow, zebra)
 
         # one nvcc per source, all started together
         t0 = time.perf_counter()
-        names = ("probe", "zebra", "sor", "chain")
+        names = ("probe", "zebra", "sor", "chain", "winslow")
         with ThreadPoolExecutor(len(names)) as pool:
             paths = list(pool.map(_build.build_library, names))
         t_build = time.perf_counter() - t0
-        for mod in (probe, zebra, sor, chain):
+        for mod in (probe, zebra, sor, chain, winslow):
             mod.load_library()
 
         # the probe launches first: o = i + 1, exactly
@@ -1680,7 +1709,8 @@ class Smoke:
 
     def p12_chain(self):
         bad, lines = [], []
-        for part in (self.p12a_kernel, self.p12b_trajectory):
+        for part in (self.p12a_kernel, self.p12b_trajectory,
+                     self.p12c_winslow):
             t0 = time.perf_counter()
             line = f"{part(bad)} ({time.perf_counter() - t0:.2f} s)"
             print("  " + line, flush=True)
@@ -1755,7 +1785,7 @@ class Smoke:
 
         torch = self.torch
         from turbomesh_tpu_torch import input as input_mod
-        from turbomesh_tpu_torch.ops import chain, zebra
+        from turbomesh_tpu_torch.ops import chain, winslow, zebra
         from turbomesh_tpu_torch.profiling import PhaseTimer
         from turbomesh_tpu_torch.smoothing import smooth_mesh
 
@@ -1768,6 +1798,7 @@ class Smoke:
             if route == "plain":
                 chain.chain_solve = chain.chain_solve_ref
             zebra.ZEBRA_LAUNCHES = chain.CHAIN_LAUNCHES = 0
+            winslow.WINSLOW_LAUNCHES = 0
             t0 = time.perf_counter()
             try:
                 smooth_mesh(mesh, inp.smoothing.iterations, solver="device",
@@ -1781,6 +1812,7 @@ class Smoke:
             return dict(coords=mesh.flat_coords(),
                         zebra=zebra.ZEBRA_LAUNCHES,
                         chain=chain.CHAIN_LAUNCHES,
+                        winslow=winslow.WINSLOW_LAUNCHES / n,
                         seconds=time.perf_counter() - t0,
                         interface=timer.totals["precond.interface"] / n,
                         picard=timer.totals["picard_loop"] / n,
@@ -1792,23 +1824,132 @@ class Smoke:
         self.kernels["chain_solve"]["launches_t106_10_iterations"] = (
             b["chain"])
         same = np.array_equal(a["coords"], b["coords"])
+        self.kernels["winslow_apply"]["launches_t106_iteration"] = (
+            b["winslow"])
         if not (same and a["zebra"] == b["zebra"] > 0 and a["chain"] == 0
-                and b["chain"] == CHAIN_LEN_T106):
+                and b["chain"] == CHAIN_LEN_T106
+                and a["winslow"] == b["winslow"] > 0):
             bad.append(f"(b) T106 plain vs K-I: coordinates equal {same} "
                        f"(max |delta| "
                        f"{float(np.abs(a['coords'] - b['coords']).max()):.3e}"
                        f"), zebra launches {a['zebra']} / {b['zebra']}, "
                        f"chain launches {a['chain']} / {b['chain']} (want 0 "
-                       f"/ {CHAIN_LEN_T106})")
+                       f"/ {CHAIN_LEN_T106}), K-W launches an iteration "
+                       f"{a['winslow']} / {b['winslow']}")
         return (f"(b) T106 smooth_mesh, 10 White iterations, chain solve "
                 f"plain / K-I: final coordinates bit for bit {same}; zebra "
                 f"launches {a['zebra']} / {b['zebra']}; chain launches "
-                f"{a['chain']} / {b['chain']}; wall {a['seconds']:.3f} / "
+                f"{a['chain']} / {b['chain']}; K-W launches an iteration "
+                f"{a['winslow']:.1f} / {b['winslow']:.1f}; wall {a['seconds']:.3f} / "
                 f"{b['seconds']:.3f} s; picard_loop an iteration "
                 f"{a['picard']:.4f} / {b['picard']:.4f} s; precond.interface "
                 f"an iteration {a['interface']:.4f} / {b['interface']:.4f} s; "
                 f"K-I's run, seconds an iteration by span: "
                 + ", ".join(f"{k} {v:.4f}" for k, v in b["spans"].items()))
+
+    def p12c_winslow(self, bad):
+        import numpy as np
+
+        torch = self.torch
+        from turbomesh_tpu_torch import input as input_mod
+        from turbomesh_tpu_torch.ops import winslow
+        from turbomesh_tpu_torch.smoothing.classify import classify
+        from turbomesh_tpu_torch.smoothing.device import DeviceSmoother
+
+        out = []
+        for name, path in (("T106", T106), ("t106_x2", X2_CONFIG)):
+            inp = (input_mod.load(str(path), base_dir=str(path.parent))
+                   if path == T106 else
+                   input_mod.load(json.loads(path.read_text())))
+            mesh = inp.template.run(inp.geometry)
+            sm = DeviceSmoother(mesh, classify(mesh), device="cuda")
+            rng = np.random.default_rng(12)
+            coords = mesh.flat_coords()
+            coords = coords + 1e-4 * np.ptp(coords) * rng.standard_normal(
+                coords.shape)
+            cf = 0.1 * rng.standard_normal((mesh.num_points, 2))
+            X, C = sm._upload(coords, cf)
+            base, _ = sm._stage_base(X, C)
+            ctx = sm._stage_prepare32(base, C)
+            t = sm._winslow
+            B, N, M = t.shape
+            P = B * N * M
+            junction = torch.zeros(P, dtype=torch.bool, device="cuda")
+            junction[t.decoded(torch.float64)["l_row"]] = True
+            calls = {
+                "float32": dict(V=torch.as_tensor(
+                    rng.standard_normal((P, 2)), dtype=torch.float32,
+                    device="cuda"), cf=ctx["cf32"], cG=ctx["cG"], G=ctx["G"]),
+                "float64": dict(V=torch.as_tensor(
+                    rng.standard_normal((P, 2)), device="cuda"), cf=C,
+                    cG=ctx["cG64"], base=base,
+                    scale=1.0 / ctx["diag"].to(torch.float64).reshape(-1, 2))}
+            parts = []
+            for dtype, kw in calls.items():
+                V, cfd, cG = kw.pop("V"), kw.pop("cf"), kw.pop("cG")
+
+                def kernel():
+                    return winslow.winslow_apply(t, V, cfd, cG, 0.0, **kw)
+
+                def plain():
+                    return winslow.winslow_apply_ref(t, V, cfd, cG, 0.0,
+                                                     **kw)
+
+                n0 = winslow.WINSLOW_LAUNCHES
+                got = kernel()
+                n_calls = winslow.WINSLOW_LAUNCHES - n0
+                want = plain()
+                torch.cuda.synchronize()
+                rest = torch.equal(got[~junction].view(torch.uint8),
+                                   want[~junction].view(torch.uint8))
+                j_bits = torch.equal(got[junction].view(torch.uint8),
+                                     want[junction].view(torch.uint8))
+                gap = float((got[junction] - want[junction]).abs().max()
+                            / want[junction].abs().max())
+                if not (rest and gap <= WINSLOW_JUNCTION_RTOL[dtype]
+                        and n_calls == 1):
+                    bad.append(f"(c) {name} {dtype}: K-W vs plain outside "
+                               f"the junction rows bit for bit {rest}, "
+                               f"junction gap {gap:.3e}, {n_calls} launches "
+                               f"a call")
+                s_ = got.element_size()
+                C_, L_ = t.C, int(t.plans[torch.float64]["l_rhs"].shape[0])
+                S_ = int(t.plans[torch.float64]["s_nb"].shape[0])
+                Q_ = int(t.plans[torch.float64]["sl_master"].shape[0])
+                # each input byte once: the tables, field, control function
+                # and result, the base and scale (f64) or the metrics (f32),
+                # the per-row tables
+                nbytes = (P * 8 + 3 * P * 2 * s_
+                          + (P * 2 * 16 if dtype == "float64"
+                             else ctx["G"].numel() * 4)
+                          + C_ * (8 * 8 + 3 * s_ + 2 * s_ + 1)
+                          + L_ * (t.K * (8 + s_) + 2 * s_) + S_ * 8
+                          + Q_ * (8 + 2 * s_))
+                b_ms, b_by = bound_ms(nbytes,
+                                      WINSLOW_FLOPS_PER_POINT[dtype] * P,
+                                      dtype)
+                k_ms, k_one = cuda_time_ms(torch, kernel, WINSLOW_RUN)
+                r_ms, r_one = cuda_time_ms(torch, plain, WINSLOW_RUN // 10)
+                g_us = graph_us(torch, kernel)
+                if name == "T106" and dtype == "float64":
+                    self.kernels["winslow_apply"].update(
+                        max_abs_err=float((got - want).abs().max()),
+                        ms=k_ms, plain_ms=r_ms, bound_ms=b_ms,
+                        bound_by=b_by)
+                parts.append(
+                    f"{dtype}{' scaled' if 'scale' in kw else ''}: bit for "
+                    f"bit outside the junction rows {rest}, in them {j_bits} "
+                    f"(gap {gap:.3e}), {n_calls} launch a call; K-W "
+                    f"{k_ms:.5f} ms a call ({WINSLOW_RUN} back to back; "
+                    f"one-call window {k_one:.5f} ms), {g_us:.3f} us in a "
+                    f"CUDA graph of 200; plain {r_ms:.4f} ms "
+                    f"({WINSLOW_RUN // 10} back to back; one-call "
+                    f"{r_one:.4f} ms); bound {b_ms:.2e} ms ({b_by}, "
+                    f"{nbytes} B)")
+            out.append(f"{name} ({B}, {N}, {M}), {P} points, tables "
+                       f"{t.nbytes} B: " + "; ".join(parts))
+            del sm, ctx
+        return "(c) K-W " + " | ".join(out)
 
 
     def p13_graph(self):
@@ -1828,8 +1969,12 @@ class Smoke:
         torch = self.torch
         import turbomesh_tpu_torch.smoothing.device as dm
         from turbomesh_tpu_torch import input as input_mod
-        from turbomesh_tpu_torch.ops import chain, zebra
+        from turbomesh_tpu_torch.ops import chain, winslow, zebra
         from turbomesh_tpu_torch.smoothing.classify import classify
+
+        def launches():
+            return (zebra.ZEBRA_LAUNCHES, chain.CHAIN_LAUNCHES,
+                    winslow.WINSLOW_LAUNCHES)
 
         out = []
         for name, path in (("T106", T106), ("t106_x2", X2_CONFIG)):
@@ -1853,15 +1998,15 @@ class Smoke:
                 for _ in range(15):
                     v = torch.randn((base.shape[0], 2), generator=gen,
                                     device="cuda")
-                    k = (zebra.ZEBRA_LAUNCHES, chain.CHAIN_LAUNCHES)
+                    k = launches()
                     got = sm._apply_Minv(ctx, v).clone()
-                    k1 = (zebra.ZEBRA_LAUNCHES, chain.CHAIN_LAUNCHES)
+                    k1 = launches()
                     want = sm._stage_Minv(ctx, v)
-                    k2 = (zebra.ZEBRA_LAUNCHES, chain.CHAIN_LAUNCHES)
+                    k2 = launches()
                     same &= torch.equal(got.view(torch.int32),
                                         want.view(torch.int32))
-                    launches_ok &= (k1[0] - k[0], k1[1] - k[1]) == (
-                        k2[0] - k1[0], k2[1] - k1[1])
+                    launches_ok &= all(b - a == c - b
+                                       for a, b, c in zip(k, k1, k2))
             caps = dm.PRECOND_CAPTURES - n0[0]
             reps = dm.PRECOND_REPLAYS - n0[1]
             v = torch.randn((base.shape[0], 2), generator=gen, device="cuda")
@@ -1889,7 +2034,7 @@ class Smoke:
         import turbomesh_tpu_torch.smoothing.device as dm
         from meshbench import generator, manifest
         from turbomesh_tpu_torch import input as input_mod
-        from turbomesh_tpu_torch.ops import chain, zebra
+        from turbomesh_tpu_torch.ops import chain, winslow, zebra
         from turbomesh_tpu_torch.profiling import PhaseTimer
         from turbomesh_tpu_torch.smoothing import smooth_mesh
 
@@ -1903,7 +2048,8 @@ class Smoke:
             mesh = inp.template.run(inp.geometry)
             timer = PhaseTimer()
             n0 = (zebra.ZEBRA_LAUNCHES, chain.CHAIN_LAUNCHES,
-                  dm.PRECOND_CAPTURES, dm.PRECOND_REPLAYS)
+                  dm.PRECOND_CAPTURES, dm.PRECOND_REPLAYS,
+                  winslow.WINSLOW_LAUNCHES)
             hist = []
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
@@ -1930,6 +2076,7 @@ class Smoke:
                 chain=chain.CHAIN_LAUNCHES - n0[1],
                 captures=dm.PRECOND_CAPTURES - n0[2],
                 replays=dm.PRECOND_REPLAYS - n0[3],
+                winslow=winslow.WINSLOW_LAUNCHES - n0[4],
                 peak_mib=torch.cuda.max_memory_allocated() / 2**20,
                 reserved_mib=torch.cuda.max_memory_reserved() / 2**20,
                 # the graph's pool stays reserved after the smoother has
@@ -1954,19 +2101,21 @@ class Smoke:
                 runs[route] = run(job, route)
             g, e = runs["graph"], runs["eager"]
             same = np.array_equal(g["coords"], e["coords"])
-            if not (same and (g["zebra"], g["chain"]) == (e["zebra"],
-                                                         e["chain"])
-                    and g["zebra"] > 0 and g["captures"] == 1
+            if not (same and (g["zebra"], g["chain"], g["winslow"]) == (
+                    e["zebra"], e["chain"], e["winslow"])
+                    and g["zebra"] > 0 and g["winslow"] > 0
+                    and g["captures"] == 1
                     and e["captures"] == 0):
                 bad.append(f"(b) {cell}: coordinates equal {same}, zebra "
                            f"{g['zebra']} / {e['zebra']}, chain "
-                           f"{g['chain']} / {e['chain']}, captures "
+                           f"{g['chain']} / {e['chain']}, K-W "
+                           f"{g['winslow']} / {e['winslow']}, captures "
                            f"{g['captures']} / {e['captures']}")
 
             def fmt(r):
                 return (f"wall {r['wall']:.3f} s, {r['iterations']} "
                         f"iterations, zebra {r['zebra']}, chain "
-                        f"{r['chain']}, captures {r['captures']}, replays "
+                        f"{r['chain']}, K-W {r['winslow']}, captures {r['captures']}, replays "
                         f"{r['replays']}, capture {r['capture_s']:.4f} s, "
                         f"peak {r['peak_mib']:.3f} MiB allocated, "
                         f"{r['reserved_mib']:.3f} MiB reserved (graph pool "

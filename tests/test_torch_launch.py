@@ -6,8 +6,9 @@ failed launch; the wrappers never reach it for CPU tensors; the binding
 of ``csrc/launch.cuh``, built with the host's C++ compiler against a
 stand-in CUDA runtime header, converts Python arguments to the entry
 point's parameter types and rejects the wrong ones. On a card
-(``cuda``-marked): every kernel launches on PyTorch's current stream, a
-non-default one included, and agrees there with its plain version.
+(``cuda``-marked): every kernel (K-W on the small O4H mesh) launches on
+PyTorch's current stream, a non-default one included, and agrees there
+with its plain version.
 """
 
 import pathlib
@@ -20,10 +21,11 @@ import numpy as np
 import pytest
 import torch
 
-from turbomesh_tpu_torch.ops import _build, chain, probe, sor, zebra
+from turbomesh_tpu_torch.ops import _build, chain, probe, sor, winslow, zebra
 
 from chip_smoke import zebra_inputs
 from test_torch_chain import ragged_table
+from test_torch_winslow import _cached, _operands
 
 # A stand-in for cuda_runtime.h: four devices, the current one in a static.
 _FAKE_RUNTIME = """
@@ -143,6 +145,12 @@ def test_cpu_tensors_never_reach_the_launch_path(monkeypatch):
             p32["c_row"], vflat)
     assert torch.equal(chain.chain_solve(*args, zf.clone()),
                        chain.chain_solve_ref(*args, zf.clone()))
+    t = _cached("small", "cpu")[0]._winslow
+    V, cf, cG, b, G, scale = _operands(_cached("small", "cpu"),
+                                       torch.float64, True, 0)
+    assert torch.equal(
+        winslow.winslow_apply(t, V, cf, cG, 1.0, base=b, scale=scale),
+        winslow.winslow_apply_ref(t, V, cf, cG, 1.0, base=b, scale=scale))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -202,17 +210,24 @@ def test_kernels_launch_on_the_current_stream():
     ch, p32, vflat, zf = ragged_table(3, [39, 149, 9], device="cuda")
     cargs = (ch, p32["c_seg"], p32["c_seg_valid"], p32["c_seg_pos"],
              p32["c_row"], vflat)
+    case = _cached("small", "cuda")
+    t = case[0]._winslow
+    V, wcf, cG, _, G, _ = _operands(case, torch.float32, False, 1)
     launches = {"probe": lambda: [probe.probe(x)],
                 "zebra0": lambda: list(zebra.zebra_half_sweep(*zops, axis=0)),
                 "zebra1": lambda: list(zebra.zebra_half_sweep(*zops, axis=1)),
                 "sor": lambda: [sor.red_black_sor(base, cf, x0, mask, 1.5, 3)],
-                "chain": lambda: [chain.chain_solve(*cargs, zf.clone())]}
+                "chain": lambda: [chain.chain_solve(*cargs, zf.clone())],
+                "winslow": lambda: [winslow.winslow_apply(t, V, wcf, cG, 0.0,
+                                                          G=G)]}
     plain = {"probe": lambda: [probe.probe_ref(x)],
              "zebra0": lambda: list(zebra.zebra_half_sweep_ref(*zops, axis=0)),
              "zebra1": lambda: list(zebra.zebra_half_sweep_ref(*zops, axis=1)),
              "sor": lambda: [sor.red_black_sor_ref(base, cf, x0, mask, 1.5,
                                                    3)],
-             "chain": lambda: [chain.chain_solve_ref(*cargs, zf.clone())]}
+             "chain": lambda: [chain.chain_solve_ref(*cargs, zf.clone())],
+             "winslow": lambda: [winslow.winslow_apply_ref(t, V, wcf, cG, 0.0,
+                                                           G=G)]}
     # the first launch of a kernel loads its module, which may wait for
     # the whole device (CUDA's lazy loading): load each one first
     for launch in launches.values():

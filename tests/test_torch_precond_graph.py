@@ -12,7 +12,8 @@ its context from scratch every solve, with the same zebra launches, under
 the default options, ``schur`` False, the split "j" / "i" schedule and
 ``n_levels`` 3; a smoother on the CPU has no graph. On a card (``-m cuda``):
 the replayed application equals the eager one bit for bit over 30
-applications spanning two solves (T106 and the medium grid), a 10-iteration
+applications spanning two solves (T106 and the medium grid), with its K-A,
+K-I and K-W launches, a 10-iteration
 T106 ``smooth_mesh`` gives the eager run's coordinates and launch counts
 with one capture, the deflated path and ``ShardedSmoother`` capture
 nothing, a capture succeeds while a collection frees another smoother's
@@ -31,7 +32,7 @@ import torch.distributed as dist
 import turbomesh_tpu_torch.smoothing.device as device_mod
 import turbomesh_tpu_torch.smoothing.multigrid as tmg
 from turbomesh_tpu_torch import input as torch_input
-from turbomesh_tpu_torch.ops import chain, zebra
+from turbomesh_tpu_torch.ops import chain, winslow, zebra
 from turbomesh_tpu_torch.parallel import ShardedSmoother
 from turbomesh_tpu_torch.parallel import dist as pdist
 from turbomesh_tpu_torch.smoothing import smooth_mesh
@@ -290,13 +291,20 @@ def _eager(monkeypatch):
                         lambda self, ctx, v: self._stage_Minv(ctx, v))
 
 
+def _launches():
+    """The K-A, K-I and K-W launches so far."""
+    return (zebra.ZEBRA_LAUNCHES, chain.CHAIN_LAUNCHES,
+            winslow.WINSLOW_LAUNCHES)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["t106", "t106_x2"])
 def test_replay_equals_eager_over_two_solves(name):
     """30 applications over two solves: each through ``_apply_Minv``
     (eager, capture, then replays) equals the eager ``_stage_Minv`` on the
     same context and input, bit for bit, with the eager application's
-    zebra and chain launches; one capture, 29 replays."""
+    zebra, chain and K-W launches (K-W: 3 a default application); one
+    capture, 29 replays."""
     _needs_card()
     mesh = _mesh(name)
     sm = DeviceSmoother(mesh, classify(mesh), device="cuda")
@@ -308,15 +316,14 @@ def test_replay_equals_eager_over_two_solves(name):
         ctx = sm._stage_prepare32(base, C)
         for _ in range(15):
             v = torch.randn((base.shape[0], 2), generator=gen, device="cuda")
-            n = (zebra.ZEBRA_LAUNCHES, chain.CHAIN_LAUNCHES)
+            n = _launches()
             got = sm._apply_Minv(ctx, v).clone()
-            n_got = (zebra.ZEBRA_LAUNCHES - n[0], chain.CHAIN_LAUNCHES - n[1])
-            n = (zebra.ZEBRA_LAUNCHES, chain.CHAIN_LAUNCHES)
+            n_got = tuple(b - a for a, b in zip(n, _launches()))
+            n = _launches()
             want = sm._stage_Minv(ctx, v)
-            n_want = (zebra.ZEBRA_LAUNCHES - n[0],
-                      chain.CHAIN_LAUNCHES - n[1])
+            n_want = tuple(b - a for a, b in zip(n, _launches()))
             assert _same_bits(got, want)
-            assert n_got == n_want and n_want[0] > 0
+            assert n_got == n_want and n_want[0] > 0 and n_want[2] == 3
     assert device_mod.PRECOND_CAPTURES - c0 == 1
     assert device_mod.PRECOND_REPLAYS - r0 == 29
 

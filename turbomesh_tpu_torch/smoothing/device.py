@@ -35,6 +35,7 @@ import threading
 import numpy as np
 import torch
 
+from ..ops import winslow
 from ..profiling import span
 from .classify import BoundaryInfo, Kind
 
@@ -347,6 +348,72 @@ def _zero(t):
     return torch.zeros((), dtype=t.dtype, device=t.device)
 
 
+def _equation_rows(p, shape, baseX, cf_pad, Vf, VV, with_offsets, G, cG):
+    """The rows of the equation map (DeviceSmoother._apply) from the
+    slave-substituted flat field ``Vf`` (``VV``: the values that
+    connection and junction rows read across blocks, ``Vf`` itself on one
+    device): the interior stencil, the connection middle rows (cG: their
+    metrics), the junction and sliding rows, the free mask. ``p``: the
+    plan's tensors in Vf's dtype; baseX: (B, N, M, 2) frozen coordinates,
+    unread when ``G`` is given."""
+    B, N, M = shape
+    zero = _zero(Vf)
+    V = Vf.reshape(B, N, M, 2)
+
+    # interior rows
+    R = _interior_apply(baseX, V, cf_pad, G=G)
+    R = torch.where(p["interior_mask"][..., None], R, zero)
+    Rf = R.reshape(-1, 2)
+
+    # connection middle rows (exact reference layout, smooth.zig:994-1105)
+    c_row = p["c_row"]
+    if c_row.shape[0]:
+        c_pi = p["c_pi"]
+        pi = with_offsets * c_pi
+        g11, g12, g22 = cG[:, 0], cG[:, 1], cG[:, 2]
+        cf_row = cf_pad.reshape(-1, 2)[c_row]
+        c_swap = p["c_swap_pq"]
+        P = torch.where(c_swap, cf_row[:, 1], cf_row[:, 0])
+        Q = torch.where(c_swap, cf_row[:, 0], cf_row[:, 1])
+
+        c_ij = (-2.0 * g22 - 2.0 * g11)[:, None]
+        c_ip1 = (g22 * (1 + 0.5 * P))[:, None]
+        c_im1 = (g22 * (1 - 0.5 * P))[:, None]
+        c_jp1 = (g11 * (1 + 0.5 * Q))[:, None]
+        c_jm1 = (g11 * (1 - 0.5 * Q))[:, None]
+        c_pp = (-0.5 * g12)[:, None]
+        c_pm = (0.5 * g12)[:, None]
+        c_mp = (0.5 * g12)[:, None]
+        c_mm = (-0.5 * g12)[:, None]
+
+        r = (
+            c_ij * Vf[c_row]
+            + c_ip1 * Vf[p["c_g0p"]] + c_im1 * Vf[p["c_g0m"]]
+            + c_jm1 * Vf[p["c_in0"]]
+            + c_jp1 * (VV[p["c_in1"]] - pi)
+            + c_mm * Vf[p["c_d0m"]] + c_pm * Vf[p["c_d0p"]]
+            + c_mp * (VV[p["c_d1m"]] - pi) + c_pp * (VV[p["c_d1p"]] - pi)
+        )
+        Rf = Rf.index_copy(0, c_row, r)
+
+    # junction rows
+    l_row = p["l_row"]
+    if l_row.shape[0]:
+        vals = VV[p["l_stencil"]]  # (L, K, 2)
+        r = torch.sum(p["l_weight"][..., None] * vals, dim=1)
+        r = r - with_offsets * p["l_rhs"]
+        Rf = Rf.index_copy(0, l_row, r)
+
+    # sliding rows: y - y_neighbor (x handled by exclusion from free set)
+    s_row = p["s_row"]
+    if s_row.shape[0]:
+        ry = Vf[s_row, 1] - Vf[p["s_nb"], 1]
+        Rf = Rf.index_copy(0, s_row, torch.stack([torch.zeros_like(ry), ry],
+                                                 dim=-1))
+
+    return torch.where(p["free_mask"].reshape(-1, 2), Rf, zero)
+
+
 #: coarse-space deflation modes (DeviceSmoother ``deflation``): basis
 #: components of the per-block bilinear modes; "j" is the junction mode
 DEFLATION_COMPS = {"y": (1,), "xy": (0, 1)}
@@ -430,10 +497,11 @@ class _PrecondGraph:
     graph once; every later one copies its input into the static input
     and replays. A replay runs the captured kernels in the captured order,
     so it returns the eager application's values bit for bit.
-    ``ops.zebra.ZEBRA_LAUNCHES`` and ``ops.chain.CHAIN_LAUNCHES`` count the
-    launches a replay makes: the capture counts them once (for the replay
-    that follows it), and each later replay adds them. The graph and its
-    pool go with the smoother."""
+    ``ops.zebra.ZEBRA_LAUNCHES``, ``ops.chain.CHAIN_LAUNCHES`` and
+    ``ops.winslow.WINSLOW_LAUNCHES`` count the launches a replay makes: the
+    capture counts them once (for the replay that follows it), and each
+    later replay adds them. The graph and its pool go with the
+    smoother."""
 
     __slots__ = ("applications", "graph", "v", "z", "launches")
 
@@ -457,9 +525,10 @@ class _PrecondGraph:
             self._capture(stage, ctx, v)
         else:
             self.v.copy_(v)
-            nz, nc = self.launches
+            nz, nc, nw = self.launches
             zebra.ZEBRA_LAUNCHES += nz
             chain.CHAIN_LAUNCHES += nc
+            winslow.WINSLOW_LAUNCHES += nw
         self.graph.replay()
         PRECOND_REPLAYS += 1
         return self.z
@@ -472,7 +541,8 @@ class _PrecondGraph:
         global _CAPTURING, PRECOND_CAPTURES
         with _CAPTURE_LOCK, span("precond.graph.capture"):
             graph = torch.cuda.CUDAGraph()
-            nz, nc = zebra.ZEBRA_LAUNCHES, chain.CHAIN_LAUNCHES
+            nz, nc, nw = (zebra.ZEBRA_LAUNCHES, chain.CHAIN_LAUNCHES,
+                          winslow.WINSLOW_LAUNCHES)
             _CAPTURING = threading.get_ident()
             try:
                 with torch.cuda.graph(graph,
@@ -483,7 +553,8 @@ class _PrecondGraph:
                 _CAPTURING = None
                 _KEPT.clear()
             self.launches = (zebra.ZEBRA_LAUNCHES - nz,
-                             chain.CHAIN_LAUNCHES - nc)
+                             chain.CHAIN_LAUNCHES - nc,
+                             winslow.WINSLOW_LAUNCHES - nw)
             self.graph, self.v, self.z = graph, v, z
             PRECOND_CAPTURES += 1
 
@@ -532,6 +603,10 @@ class DeviceSmoother:
     #: deflation only (the sharded subclass has none: its collectives
     #: stay eager)
     _graph = None
+    #: the mesh's K-W tables (ops.winslow.WinslowTables), through which
+    #: _op applies the operator; the sharded subclass has none: its rows
+    #: read exchanged tables, through _apply's hooks
+    _winslow = None
 
     def __init__(self, mesh, info: BoundaryInfo, *, device,
                  rtol: float = 1e-13, atol: float = 1e-15,
@@ -571,8 +646,9 @@ class DeviceSmoother:
         self._lo, self._hi = 0, p.B
         with span("solver_setup.upload"):
             tens = plan_tensors(p, self.device)
-        self._p64 = tens["p64"]
-        self._p32 = tens["p32"]
+            self._p64 = tens["p64"]
+            self._p32 = tens["p32"]
+            self._winslow = winslow.WinslowTables(p, self._p64, self._p32)
         # STORAGE-frame block extents (transposed blocks store (nj, ni))
         sizes = [(nj, ni) if t else (ni, nj)
                  for (ni, nj), t in zip((b.size for b in mesh.blocks),
@@ -719,70 +795,35 @@ class DeviceSmoother:
         affine map F(v), 0.0 the linear map A v. G/cG: optional
         precomputed interior/connection metric stacks (f64-differenced,
         f32-stored — see _interior_apply; cG as from _conn_metrics)."""
-        p = self._plan_for(Vf.dtype)
-        B, N, M = self._shape
-        zero = _zero(Vf)
-
         # every exchange happens here, before any branch on this rank's
         # row counts, so all ranks post the same ones in the same order
         if cG is None:
             cG = self._conn_metrics(baseF, self._remote_F(baseF))
         Vf = self._substitute(Vf, with_offsets)
-        VV = self._remote_F(Vf)
-        V = Vf.reshape(B, N, M, 2)
+        return _equation_rows(self._plan_for(Vf.dtype), self._shape, baseX,
+                              cf_pad, Vf, self._remote_F(Vf), with_offsets,
+                              G, cG)
 
-        # interior rows
-        R = _interior_apply(baseX, V, cf_pad, G=G)
-        R = torch.where(p["interior_mask"][..., None], R, zero)
-        Rf = R.reshape(-1, 2)
-
-        # connection middle rows (exact reference layout, smooth.zig:994-1105)
-        c_row = p["c_row"]
-        if c_row.shape[0]:
-            c_pi = p["c_pi"]
-            pi = with_offsets * c_pi
-            g11, g12, g22 = cG[:, 0], cG[:, 1], cG[:, 2]
-            cf_row = cf_pad.reshape(-1, 2)[c_row]
-            c_swap = p["c_swap_pq"]
-            P = torch.where(c_swap, cf_row[:, 1], cf_row[:, 0])
-            Q = torch.where(c_swap, cf_row[:, 0], cf_row[:, 1])
-
-            c_ij = (-2.0 * g22 - 2.0 * g11)[:, None]
-            c_ip1 = (g22 * (1 + 0.5 * P))[:, None]
-            c_im1 = (g22 * (1 - 0.5 * P))[:, None]
-            c_jp1 = (g11 * (1 + 0.5 * Q))[:, None]
-            c_jm1 = (g11 * (1 - 0.5 * Q))[:, None]
-            c_pp = (-0.5 * g12)[:, None]
-            c_pm = (0.5 * g12)[:, None]
-            c_mp = (0.5 * g12)[:, None]
-            c_mm = (-0.5 * g12)[:, None]
-
-            r = (
-                c_ij * Vf[c_row]
-                + c_ip1 * Vf[p["c_g0p"]] + c_im1 * Vf[p["c_g0m"]]
-                + c_jm1 * Vf[p["c_in0"]]
-                + c_jp1 * (VV[p["c_in1"]] - pi)
-                + c_mm * Vf[p["c_d0m"]] + c_pm * Vf[p["c_d0p"]]
-                + c_mp * (VV[p["c_d1m"]] - pi) + c_pp * (VV[p["c_d1p"]] - pi)
-            )
-            Rf = Rf.index_copy(0, c_row, r)
-
-        # junction rows
-        l_row = p["l_row"]
-        if l_row.shape[0]:
-            vals = VV[p["l_stencil"]]  # (L, K, 2)
-            r = torch.sum(p["l_weight"][..., None] * vals, dim=1)
-            r = r - with_offsets * p["l_rhs"]
-            Rf = Rf.index_copy(0, l_row, r)
-
-        # sliding rows: y - y_neighbor (x handled by exclusion from free set)
-        s_row = p["s_row"]
-        if s_row.shape[0]:
-            ry = Vf[s_row, 1] - Vf[p["s_nb"], 1]
-            Rf = Rf.index_copy(0, s_row, torch.stack([torch.zeros_like(ry), ry],
-                                                     dim=-1))
-
-        return torch.where(p["free_mask"].reshape(-1, 2), Rf, zero)
+    def _op(self, baseF, cf_pad, Vf, with_offsets: float, G=None, cG=None,
+            scale=None):
+        """``scale * _apply(...)`` (scale optional) at the frozen flat base
+        ``baseF``: one K-W launch (``ops.winslow``) where this smoother
+        holds the mesh's tables (``_winslow``: a DeviceSmoother; the plain
+        version on CPU tensors), ``_apply`` through the exchange hooks
+        otherwise (the sharded subclass). f32 takes ``G`` and ``cG``; f64
+        forms the interior metrics from ``baseF``, and ``cG`` when not
+        given."""
+        if self._winslow is None:
+            B, N, M = self._shape
+            R = self._apply(baseF.reshape(B, N, M, 2), baseF, cf_pad, Vf,
+                            with_offsets, G=G, cG=cG)
+            return R if scale is None else scale * R
+        if cG is None:
+            cG = self._conn_metrics(baseF, baseF)
+        return winslow.winslow_apply(self._winslow, Vf, cf_pad, cG,
+                                     with_offsets,
+                                     base=None if G is not None else baseF,
+                                     G=G, scale=scale)
 
     def _diag(self, baseX, cG):
         """Jacobi diagonal over free components (1 elsewhere); cG: the
@@ -816,17 +857,15 @@ class DeviceSmoother:
 
     def _stage_base(self, Xpad, cf_pad):
         """Frozen base (slave-substituted, flat) and the rhs b = -F(base)."""
-        B, N, M = self._shape
         baseF = self._substitute(Xpad.reshape(-1, 2), 1.0)
-        b = -self._apply(baseF.reshape(B, N, M, 2), baseF, cf_pad, baseF, 1.0)
+        b = -self._op(baseF, cf_pad, baseF, 1.0)
         return baseF, b
 
-    def _stage_apply64(self, baseF, cf_pad, v, cG=None):
-        """f64 linear operator A v (cG: the f64 connection metrics,
-        ``ctx["cG64"]``, formed here when not given)."""
-        B, N, M = self._shape
-        return self._apply(baseF.reshape(B, N, M, 2), baseF, cf_pad, v, 0.0,
-                           cG=cG)
+    def _stage_apply64(self, baseF, cf_pad, v, cG=None, scale=None):
+        """f64 linear operator A v, times the row scale ``scale`` where
+        given (cG: the f64 connection metrics, ``ctx["cG64"]``, formed
+        here when not given)."""
+        return self._op(baseF, cf_pad, v, 0.0, cG=cG, scale=scale)
 
     def _stage_finish(self, baseF, delta):
         free64 = self._p64["free_mask"].reshape(-1, 2)
@@ -893,11 +932,9 @@ class DeviceSmoother:
 
     def _stage_A32(self, ctx, v):
         """f32 linear operator application."""
-        B, N, M = self._shape
-        baseF32 = ctx["baseF32"]
         with span("precond.residual"):
-            return self._apply(baseF32.reshape(B, N, M, 2), baseF32,
-                               ctx["cf32"], v, 0.0, G=ctx["G"], cG=ctx["cG"])
+            return self._op(ctx["baseF32"], ctx["cf32"], v, 0.0, G=ctx["G"],
+                            cG=ctx["cG"])
 
     # -- coarse-space deflation (implicit per-block bilinear basis) ----------
     #
@@ -1120,8 +1157,8 @@ class DeviceSmoother:
 
         def A_s(v):
             with span("fgmres.operator"):
-                return inv_row * self._stage_apply64(base, cf_pad, v,
-                                                     cG=ctx["cG64"])
+                return self._stage_apply64(base, cf_pad, v, cG=ctx["cG64"],
+                                           scale=inv_row)
 
         def M_s(v):
             with span("precond"):
