@@ -33,6 +33,9 @@ torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 T106 = ROOT / "examples" / "T106" / "T106.json"
+# mm-unit geometry (``geometry.scale`` on profile and pitch) and a 6-point
+# block (``in_i`` 5) that coarsens to 1 point on the multigrid's levels
+LS89 = ROOT / "examples" / "LS89" / "LS89.json"
 
 SMALL_O4H = {
     "template": {"O4H": {
@@ -55,8 +58,9 @@ def _meshes(case):
     """(jax mesh, port mesh) for the named config."""
     out = []
     for mod in (jax_input, torch_input):
-        if case == "t106":
-            inp = mod.load(str(T106), base_dir=str(T106.parent))
+        if case in ("t106", "ls89"):
+            path = T106 if case == "t106" else LS89
+            inp = mod.load(str(path), base_dir=str(path.parent))
         else:
             inp = mod.load(SMALL_O4H, base_dir=str(ROOT))
         out.append(inp.template.run(inp.geometry))
@@ -88,7 +92,7 @@ def _same(a, b, path="root"):
         assert a == b and type(a) is type(b), f"{path}: {a!r} != {b!r}"
 
 
-@pytest.mark.parametrize("case", ["t106", "small_o4h"])
+@pytest.mark.parametrize("case", ["t106", "small_o4h", "ls89"])
 def test_mesh_bit_identical(case):
     mj, mt = _meshes(case)
     assert mj.num_points == mt.num_points
@@ -96,7 +100,7 @@ def test_mesh_bit_identical(case):
     np.testing.assert_array_equal(mj.flat_coords(), mt.flat_coords())
 
 
-@pytest.mark.parametrize("case", ["t106", "small_o4h"])
+@pytest.mark.parametrize("case", ["t106", "small_o4h", "ls89"])
 def test_classify_plan_glue_identical(case):
     mj, mt = _meshes(case)
     ij, it = jax_classify(mj), classify(mt)
