@@ -7,8 +7,8 @@
 Phases (each prints its result and wall time on its own line):
   0. environment: card name and power limit, torch and CUDA versions;
      TF32 off for matmuls and cuDNN.
-  1. build the five kernels (csrc/probe.cu, zebra.cu, sor.cu, chain.cu,
-     winslow.cu) with nvcc,
+  1. build the six kernels (csrc/probe.cu, zebra.cu, sor.cu, chain.cu,
+     winslow.cu, glue.cu) with nvcc,
      all at once (ptxas's registers and spills printed), then launch the
      probe first: its output must be exactly i + 1. Its time a call is
      printed beside torch.add's on the same tile, with the host cost of
@@ -104,8 +104,10 @@ Phases (each prints its result and wall time on its own line):
      through the kernel: final coordinates equal bit for bit, the same
      zebra launches, CHAIN_LAUNCHES 0 and CHAIN_LEN_T106 (63 an
      iteration), the walls, the interface span's seconds an iteration and
-     K-I's run's split by span (P12_SPANS) printed, and the K-W launches
-     an iteration (equal in both runs); (c) the linear Winslow operator
+     K-I's run's split by span (P12_SPANS) printed, the K-W launches
+     an iteration (equal in both runs), and GLUE_LAUNCHES equal to the
+     zebra launches in both runs (K-G once a V-cycle half-sweep on the
+     main path); (c) the linear Winslow operator
      K-W (csrc/winslow.cu) on the T106 plan (8, 221, 41) and the medium
      grid's (8, 441, 81), at a seeded perturbation of the mesh and a
      seeded control function: in f32 as the preconditioner's residual
@@ -135,6 +137,25 @@ Phases (each prints its result and wall time on its own line):
      P13_SECONDS s in each of the two cells: every run correct, the K-A
      kernels in the breakdown's device operations, the zebra roofline
      shares and graph_capture_s read above 0.
+ 14. the V-cycle's glue kernel K-G (csrc/glue.cu): (a) on every level of
+     T106, LS89 and the medium grid, at a seeded perturbation of the mesh
+     and a seeded control function, the kernel against the plain version
+     (ops/glue.py glue_planes_ref) on the same tensors from both input
+     forms (a seeded field; two seeded framed planes), bit for bit, one
+     GLUE_LAUNCHES a call, and the module's frame_planes and
+     unframe_planes against their CPU versions, bit for bit, counting no
+     GLUE_LAUNCHES; at each level 0 its time a call back to back
+     (GLUE_RUN between CUDA events) and in a CUDA graph, the plain
+     version's, the glue it replaces (MapGlue.correction between the mask
+     and the split) and the bound (bytes: the code byte and the output
+     of every framed point, the input only on the mask); (b) one
+     preconditioner application
+     (_stage_Minv) of each mesh with K-G and with the per-half-sweep
+     loop it replaced (tests/test_torch_glue_planes.py
+     smooth_glued_loop): the same result bit for bit, the kernels each
+     launches on the card (torch.profiler, eager) and the nodes of its
+     CUDA graph (cuGraphGetNodes, where torch keeps the graph), and its
+     device time replayed (P14_RUN in a row between CUDA events).
 
 Times: a call's time is a run of back-to-back calls between two CUDA
 events over the count, median of several runs (cuda_time_ms); the window
@@ -293,6 +314,13 @@ P13_SEED = 2718281829
 P13_SECONDS = 5
 P13_CELLS = (("t106.design_loop", "zebra_roofline_pct"),
              ("t106_x2.laplace_target", "x2_zebra_roofline_pct"))
+# phase 14: back-to-back K-G calls a timing run, applications in a row a
+# replay timing run; flops of a copy entry (a multiply a component) and of
+# a junction member (a multiply and an add a component)
+GLUE_RUN = 200
+P14_RUN = 20
+GLUE_FLOPS_COPY = 2
+GLUE_FLOPS_MEMBER = 4
 
 
 def scaled_t106_config(s: int) -> dict:
@@ -641,6 +669,14 @@ class Smoke:
                 "replaces": "none (turbomesh_tpu/smoothing/krylov.py:333 "
                             "lax.scan, as device.py:1072 uses it)",
                 "library_ms": None},
+            # K-G replaces no Pallas kernel: the glue that the JAX package
+            # leaves to XLA
+            "glue_planes": {
+                "name": "glue_planes", "route": "cuda",
+                "source": "turbomesh_tpu_torch/csrc/glue.cu",
+                "replaces": "none (turbomesh_tpu/smoothing/multigrid.py "
+                            "_glue_correction, left to XLA)",
+                "library_ms": None},
             # K-W replaces no Pallas kernel: the equation map that the JAX
             # package leaves to XLA
             "winslow_apply": {
@@ -694,16 +730,16 @@ class Smoke:
         from concurrent.futures import ThreadPoolExecutor
 
         torch = self.torch
-        from turbomesh_tpu_torch.ops import (_build, chain, probe, sor,
-                                             winslow, zebra)
+        from turbomesh_tpu_torch.ops import (_build, chain, glue, probe,
+                                             sor, winslow, zebra)
 
         # one nvcc per source, all started together
         t0 = time.perf_counter()
-        names = ("probe", "zebra", "sor", "chain", "winslow")
+        names = ("probe", "zebra", "sor", "chain", "winslow", "glue")
         with ThreadPoolExecutor(len(names)) as pool:
             paths = list(pool.map(_build.build_library, names))
         t_build = time.perf_counter() - t0
-        for mod in (probe, zebra, sor, chain, winslow):
+        for mod in (probe, zebra, sor, chain, winslow, glue):
             mod.load_library()
 
         # the probe launches first: o = i + 1, exactly
@@ -1785,7 +1821,7 @@ class Smoke:
 
         torch = self.torch
         from turbomesh_tpu_torch import input as input_mod
-        from turbomesh_tpu_torch.ops import chain, winslow, zebra
+        from turbomesh_tpu_torch.ops import chain, glue, winslow, zebra
         from turbomesh_tpu_torch.profiling import PhaseTimer
         from turbomesh_tpu_torch.smoothing import smooth_mesh
 
@@ -1798,7 +1834,7 @@ class Smoke:
             if route == "plain":
                 chain.chain_solve = chain.chain_solve_ref
             zebra.ZEBRA_LAUNCHES = chain.CHAIN_LAUNCHES = 0
-            winslow.WINSLOW_LAUNCHES = 0
+            winslow.WINSLOW_LAUNCHES = glue.GLUE_LAUNCHES = 0
             t0 = time.perf_counter()
             try:
                 smooth_mesh(mesh, inp.smoothing.iterations, solver="device",
@@ -1813,6 +1849,7 @@ class Smoke:
                         zebra=zebra.ZEBRA_LAUNCHES,
                         chain=chain.CHAIN_LAUNCHES,
                         winslow=winslow.WINSLOW_LAUNCHES / n,
+                        glue=glue.GLUE_LAUNCHES, iterations=n,
                         seconds=time.perf_counter() - t0,
                         interface=timer.totals["precond.interface"] / n,
                         picard=timer.totals["picard_loop"] / n,
@@ -1826,20 +1863,28 @@ class Smoke:
         same = np.array_equal(a["coords"], b["coords"])
         self.kernels["winslow_apply"]["launches_t106_iteration"] = (
             b["winslow"])
+        # K-G once a zebra half-sweep of the main path (the V-cycle's
+        # smooths, eager and replayed), on either route of the chain solve
+        self.kernels["glue_planes"]["launches_t106_iteration"] = (
+            b["glue"] / b["iterations"])
         if not (same and a["zebra"] == b["zebra"] > 0 and a["chain"] == 0
                 and b["chain"] == CHAIN_LEN_T106
-                and a["winslow"] == b["winslow"] > 0):
+                and a["winslow"] == b["winslow"] > 0
+                and a["glue"] == a["zebra"] and b["glue"] == b["zebra"]):
             bad.append(f"(b) T106 plain vs K-I: coordinates equal {same} "
                        f"(max |delta| "
                        f"{float(np.abs(a['coords'] - b['coords']).max()):.3e}"
                        f"), zebra launches {a['zebra']} / {b['zebra']}, "
                        f"chain launches {a['chain']} / {b['chain']} (want 0 "
                        f"/ {CHAIN_LEN_T106}), K-W launches an iteration "
-                       f"{a['winslow']} / {b['winslow']}")
+                       f"{a['winslow']} / {b['winslow']}, K-G launches "
+                       f"{a['glue']} / {b['glue']} (want the zebra "
+                       f"launches)")
         return (f"(b) T106 smooth_mesh, 10 White iterations, chain solve "
                 f"plain / K-I: final coordinates bit for bit {same}; zebra "
                 f"launches {a['zebra']} / {b['zebra']}; chain launches "
-                f"{a['chain']} / {b['chain']}; K-W launches an iteration "
+                f"{a['chain']} / {b['chain']}; K-G launches {a['glue']} / "
+                f"{b['glue']}; K-W launches an iteration "
                 f"{a['winslow']:.1f} / {b['winslow']:.1f}; wall {a['seconds']:.3f} / "
                 f"{b['seconds']:.3f} s; picard_loop an iteration "
                 f"{a['picard']:.4f} / {b['picard']:.4f} s; precond.interface "
@@ -2158,13 +2203,265 @@ class Smoke:
                        f"{line['breakdown']['idle_gaps'][:6]}")
         return "(c) " + "; ".join(out)
 
+    def p14_glue(self):
+        bad, lines = [], []
+        for part in (self.p14a_kernel, self.p14b_application):
+            t0 = time.perf_counter()
+            line = f"{part(bad)} ({time.perf_counter() - t0:.2f} s)"
+            print("  " + line, flush=True)
+            lines.append(line)
+        if bad:
+            raise AssertionError("; ".join(bad))
+        return "; ".join(lines)
+
+    def _p14_smoother(self, inp, seed):
+        """A DeviceSmoother of ``inp``'s mesh on the card and its f32
+        context at a seeded perturbation and control function."""
+        import numpy as np
+
+        from turbomesh_tpu_torch.smoothing.classify import classify
+        from turbomesh_tpu_torch.smoothing.device import DeviceSmoother
+
+        mesh = inp.template.run(inp.geometry)
+        sm = DeviceSmoother(mesh, classify(mesh), device="cuda")
+        rng = np.random.default_rng(seed)
+        coords = mesh.flat_coords()
+        coords = coords + 1e-4 * np.ptp(coords) * rng.standard_normal(
+            coords.shape)
+        cf = 0.1 * rng.standard_normal((mesh.num_points, 2))
+        X, C = sm._upload(coords, cf)
+        base, _ = sm._stage_base(X, C)
+        return sm, sm._stage_prepare32(base, C)
+
+    def p14a_kernel(self, bad):
+        torch = self.torch
+        from turbomesh_tpu_torch.ops import glue
+
+        def same(a, b):
+            return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+        out = []
+        for name, inp in _p14_meshes():
+            sm, ctx = self._p14_smoother(inp, 14)
+            gen = torch.Generator(device="cuda").manual_seed(14)
+            levels_ok = framing_ok = True
+            parts = []
+            for lvl, level in enumerate(ctx["mg"]):
+                t = level["glue"].tables
+                B, N, M = t.shape
+                z = torch.randn((B, N, M, 2), generator=gen, device="cuda")
+                planes = tuple(torch.randn((B, N + 2, M + 2), generator=gen,
+                                           device="cuda") for _ in range(2))
+                for v in (z, planes):
+                    n0 = glue.GLUE_LAUNCHES
+                    got = glue.glue_planes(t, v)
+                    n_calls = glue.GLUE_LAUNCHES - n0
+                    want = glue.glue_planes_ref(t, v)
+                    torch.cuda.synchronize()
+                    levels_ok &= (n_calls == 1 and same(got[0], want[0])
+                                  and same(got[1], want[1]))
+                # the smooth's two other launches of the module, frame and
+                # unframe, against their CPU versions; neither counts
+                n0 = glue.GLUE_LAUNCHES
+                got = glue.frame_planes(z) + (
+                    glue.unframe_planes(*planes, t.mask),)
+                want = glue.frame_planes(z.cpu()) + (glue.unframe_planes(
+                    *(p.cpu() for p in planes), t.mask.cpu()),)
+                framing_ok &= (glue.GLUE_LAUNCHES == n0 and all(
+                    same(g.cpu(), w) for g, w in zip(got, want)))
+                if lvl:
+                    continue
+                mask = level["interior"]
+                g = level["glue"]
+
+                def kernel():
+                    return glue.glue_planes(t, planes)
+
+                def plain():
+                    return glue.glue_planes_ref(t, planes)
+
+                def replaced():
+                    zm = glue.unframe_planes(*planes, mask)
+                    zg = g.correction(zm)
+                    return zg[..., 0].contiguous(), zg[..., 1].contiguous()
+
+                P = B * (N + 2) * (M + 2)
+                E, L, K = t._sizes
+                on = int((t.code == glue.ON).sum())
+                # each byte the call must move once: the code byte and the
+                # two output floats of every framed point, the two input
+                # floats of the points on the mask (the only ones value()
+                # reads), the entries and their weights
+                nbytes = (P * (1 + 2 * 4) + on * 2 * 4 + E * 16
+                          + L * (4 * (1 + K) + 4 * K))
+                flops = E * GLUE_FLOPS_COPY + L * K * GLUE_FLOPS_MEMBER
+                b_ms, b_by = bound_ms(nbytes, flops, "float32")
+                k_ms, k_one = cuda_time_ms(torch, kernel, GLUE_RUN)
+                g_us = graph_us(torch, kernel)
+                r_ms, _ = cuda_time_ms(torch, plain, GLUE_RUN // 10)
+                x_ms, _ = cuda_time_ms(torch, replaced, GLUE_RUN // 10)
+                x_us = graph_us(torch, replaced)
+                if name == "T106":
+                    self.kernels["glue_planes"].update(
+                        max_abs_err=0.0 if levels_ok else None, ms=k_ms,
+                        plain_ms=r_ms, bound_ms=b_ms, bound_by=b_by)
+                parts.append(
+                    f"level 0 ({B}, {N + 2}, {M + 2}) framed, {E} copies, "
+                    f"{L} x {K} junction members: K-G {k_ms:.5f} ms a call "
+                    f"({GLUE_RUN} back to back; one-call window "
+                    f"{k_one:.5f} ms), {g_us:.3f} us in a CUDA graph of "
+                    f"200; plain {r_ms:.4f} ms; the glue it replaced "
+                    f"(unframe, correction, split) {x_ms:.4f} ms back to "
+                    f"back, {x_us:.3f} us in a graph; bound {b_ms:.2e} ms "
+                    f"({b_by}, {nbytes} B, {on} points on the mask)")
+            if not levels_ok:
+                bad.append(f"(a) {name}: K-G vs plain not bit for bit on "
+                           f"every level, or not one launch a call")
+            if not framing_ok:
+                bad.append(f"(a) {name}: frame_planes / unframe_planes vs "
+                           f"their CPU versions not bit for bit on every "
+                           f"level, or counted in GLUE_LAUNCHES")
+            out.append(f"{name} ({len(ctx['mg'])} levels, tables "
+                       f"{sum(lv['glue'].tables.nbytes for lv in ctx['mg'])}"
+                       f" B): both forms bit for bit on every level "
+                       f"{levels_ok}; frame and unframe bit for bit the CPU "
+                       f"on every level {framing_ok}; " + "; ".join(parts))
+            del sm, ctx
+        return "(a) K-G " + " | ".join(out)
+
+    def p14b_application(self, bad):
+        torch = self.torch
+        import turbomesh_tpu_torch.smoothing.multigrid as tmg
+        from turbomesh_tpu_torch.ops import glue
+
+        loop = glue_loop()
+        planes_smooth = tmg._smooth_glued
+        out = []
+        for name, inp in _p14_meshes():
+            sm, ctx = self._p14_smoother(inp, 15)
+            P = ctx["baseF32"].shape[0]
+            v = torch.randn((P, 2), device="cuda",
+                            generator=torch.Generator(
+                                device="cuda").manual_seed(15))
+            row = {}
+            for layout, smooth in (("loop", loop), ("K-G", planes_smooth)):
+                tmg._smooth_glued = smooth
+                try:
+                    def app():
+                        return sm._stage_Minv(ctx, v)
+
+                    n0 = glue.GLUE_LAUNCHES
+                    z = app().clone()
+                    launches = glue.GLUE_LAUNCHES - n0
+                    kernels, top = profiled_kernels(torch, app)
+                    nodes = graph_nodes(torch, app)
+                    graph = torch.cuda.CUDAGraph()
+                    side = torch.cuda.Stream()
+                    side.wait_stream(torch.cuda.current_stream())
+                    with torch.cuda.stream(side):
+                        app()
+                    torch.cuda.current_stream().wait_stream(side)
+                    with torch.cuda.graph(graph):
+                        app()
+                    r_ms, _ = cuda_time_ms(torch, graph.replay, P14_RUN,
+                                           reps=5)
+                    del graph
+                finally:
+                    tmg._smooth_glued = planes_smooth
+                row[layout] = dict(z=z, launches=launches, kernels=kernels,
+                                   top=top, nodes=nodes, replay_ms=r_ms)
+            a, b = row["loop"], row["K-G"]
+            same = torch.equal(a["z"].view(torch.int32),
+                               b["z"].view(torch.int32))
+            if not (same and a["launches"] == 0 and b["launches"] > 0):
+                bad.append(f"(b) {name}: K-G vs loop bit for bit {same}, "
+                           f"glue launches {a['launches']} / "
+                           f"{b['launches']}")
+            out.append(
+                f"{name}: an application bit for bit {same}; "
+                + "; ".join(f"{k}: {r['kernels']} device ops (profiler), "
+                            f"{r['nodes']} graph nodes, {r['launches']} "
+                            f"K-G launches, replayed {r['replay_ms']:.4f} ms "
+                            f"({P14_RUN} in a row), most frequent "
+                            f"{r['top'][:6]}" for k, r in row.items()))
+            del sm, ctx
+        return "(b) " + " | ".join(out)
+
+
+def glue_loop():
+    """The V-cycle's smooth before K-G (the per-half-sweep loop), from the
+    test file that keeps it as the reference."""
+    path = ROOT / "tests" / "test_torch_glue_planes.py"
+    spec = importlib.util.spec_from_file_location("glue_planes_tests", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.smooth_glued_loop
+
+
+def graph_nodes(torch, fn):
+    """The nodes of a CUDA graph captured over fn() (cuGraphGetNodes on
+    ``CUDAGraph.raw_cuda_graph``), or None where this torch does not keep
+    the captured graph."""
+    import ctypes
+
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:
+        return None
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        fn()
+    count = ctypes.c_size_t(0)
+    try:
+        raw = graph.raw_cuda_graph()
+        err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+            ctypes.c_void_p(raw), None, ctypes.byref(count))
+    except (AttributeError, OSError, RuntimeError):
+        return None
+    finally:
+        del graph
+    return None if err else count.value
+
+
+def profiled_kernels(torch, fn):
+    """The device operations (kernels, copies, sets) fn() runs on the
+    card, by torch.profiler: (count, the ten most frequent names with
+    their counts)."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = Counter(e.name[:48] for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    return sum(names.values()), names.most_common(10)
+
+
+def _p14_meshes():
+    """(name, input) of the three meshes that the benchmark's cells
+    smooth."""
+    from turbomesh_tpu_torch import input as input_mod
+
+    yield "T106", input_mod.load(str(T106), base_dir=str(T106.parent))
+    yield "LS89", input_mod.load(str(LS89), base_dir=str(LS89.parent))
+    yield "t106_x2", input_mod.load(json.loads(X2_CONFIG.read_text()))
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="0,1,2,3,4,5,6,8,9,10,11,12,13",
+                    default="0,1,2,3,4,5,6,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (default: 0-6, "
-                    "8-13)")
+                    "8-14)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -2201,7 +2498,8 @@ def main(argv=None) -> int:
               "torch_trace, service, bulk TFI)", smoke.p10_last_modules),
              (11, "11 preconditioner options (mg_opts)", smoke.p11_mg_opts),
              (12, "12 chain kernel K-I (interface solve)", smoke.p12_chain),
-             (13, "13 the preconditioner's CUDA graph", smoke.p13_graph)]
+             (13, "13 the preconditioner's CUDA graph", smoke.p13_graph),
+             (14, "14 the V-cycle's glue kernel K-G", smoke.p14_glue)]
     for k, name, fn in steps:
         if k in phases:
             smoke.phase(name, fn)

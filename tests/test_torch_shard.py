@@ -192,8 +192,9 @@ def test_vcycle_local_glue_bit_identical():
         assert torch.equal(gl["gcdst"], gl["gdst"])
         assert gl["gjdst"].shape[0] == 0
 
-    class LocalGlue:
-        """The glue interface written out over a level's plain map."""
+    class LocalGlue(tmg.MapGlue):
+        """The glue interface written out over a level's plain map (its
+        zebra planes glued by MapGlue's composition of ``correction``)."""
 
         def __init__(self, gl):
             self.gl = gl

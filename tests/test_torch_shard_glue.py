@@ -81,7 +81,7 @@ def test_world_of_one_vcycle_bit_identical(world1, case):
             tuple(a["interior"].shape) + (2,)), dtype=torch.float32)
         assert torch.equal(b["glue"].correction(v), a["glue"].correction(v))
 
-    class Plain:
+    class Plain(tmg.MapGlue):
         def __init__(self, glue):
             self.pad = self.correction = glue.pad
 

@@ -497,8 +497,9 @@ class _PrecondGraph:
     graph once; every later one copies its input into the static input
     and replays. A replay runs the captured kernels in the captured order,
     so it returns the eager application's values bit for bit.
-    ``ops.zebra.ZEBRA_LAUNCHES``, ``ops.chain.CHAIN_LAUNCHES`` and
-    ``ops.winslow.WINSLOW_LAUNCHES`` count the launches a replay makes: the
+    ``ops.zebra.ZEBRA_LAUNCHES``, ``ops.chain.CHAIN_LAUNCHES``,
+    ``ops.winslow.WINSLOW_LAUNCHES`` and ``ops.glue.GLUE_LAUNCHES`` count
+    the launches a replay makes: the
     capture counts them once (for the replay that follows it), and each
     later replay adds them. The graph and its pool go with the
     smoother."""
@@ -515,7 +516,7 @@ class _PrecondGraph:
             _KEPT.append((self.graph, self.v, self.z))
 
     def __call__(self, stage, ctx, v):
-        from ..ops import chain, zebra
+        from ..ops import chain, glue, zebra
 
         global PRECOND_CAPTURES, PRECOND_REPLAYS
         self.applications += 1
@@ -525,10 +526,11 @@ class _PrecondGraph:
             self._capture(stage, ctx, v)
         else:
             self.v.copy_(v)
-            nz, nc, nw = self.launches
+            nz, nc, nw, ng = self.launches
             zebra.ZEBRA_LAUNCHES += nz
             chain.CHAIN_LAUNCHES += nc
             winslow.WINSLOW_LAUNCHES += nw
+            glue.GLUE_LAUNCHES += ng
         self.graph.replay()
         PRECOND_REPLAYS += 1
         return self.z
@@ -536,13 +538,13 @@ class _PrecondGraph:
     def _capture(self, stage, ctx, v):
         """Capture ``stage(ctx, v)`` into ``graph`` (and instantiate it),
         ``v`` the static input and the result the static output ``z``."""
-        from ..ops import chain, zebra
+        from ..ops import chain, glue, zebra
 
         global _CAPTURING, PRECOND_CAPTURES
         with _CAPTURE_LOCK, span("precond.graph.capture"):
             graph = torch.cuda.CUDAGraph()
-            nz, nc, nw = (zebra.ZEBRA_LAUNCHES, chain.CHAIN_LAUNCHES,
-                          winslow.WINSLOW_LAUNCHES)
+            nz, nc, nw, ng = (zebra.ZEBRA_LAUNCHES, chain.CHAIN_LAUNCHES,
+                              winslow.WINSLOW_LAUNCHES, glue.GLUE_LAUNCHES)
             _CAPTURING = threading.get_ident()
             try:
                 with torch.cuda.graph(graph,
@@ -554,7 +556,8 @@ class _PrecondGraph:
                 _KEPT.clear()
             self.launches = (zebra.ZEBRA_LAUNCHES - nz,
                              chain.CHAIN_LAUNCHES - nc,
-                             winslow.WINSLOW_LAUNCHES - nw)
+                             winslow.WINSLOW_LAUNCHES - nw,
+                             glue.GLUE_LAUNCHES - ng)
             self.graph, self.v, self.z = graph, v, z
             PRECOND_CAPTURES += 1
 

@@ -7,11 +7,13 @@ connection faces participate at every level through one ghost ring per
 block filled from the partner block (glue.py): error modes smooth ACROSS
 block interfaces are damped by the hierarchy instead of being left to the
 Krylov iteration. The smoother is zebra line relaxation, one
-``ops.zebra.zebra_half_sweep`` per (direction, color).
+``ops.zebra.zebra_half_sweep`` per (direction, color), each after the
+glue of the correction on the two ghost-framed planes it reads.
 
 Levels are plain dicts of tensors, each with its glue: an object with
-``pad`` and ``correction`` (``MapGlue`` on one device, the sharded path's
-``ShardGlue``), which the V-cycle calls without knowing which it is.
+``pad``, ``correction`` and ``correction_planes`` (``MapGlue`` on one
+device, the sharded path's ``ShardGlue``), which the V-cycle calls without
+knowing which it is.
 Counterpart of the glued half of turbomesh_tpu/smoothing/multigrid.py
 (prep_glue_arrays .. v_cycle_glued).
 """
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops import glue as kg
 from ..ops.zebra import zebra_half_sweep
 
 #: transfer-map field names for boundary-aligned (non-stride-2) levels
@@ -48,7 +51,10 @@ def prep_glue_arrays(glue_levels, device):
     as XLA:CPU resolves the reference's duplicates). The correction glue
     then drops the plain copies whose destination a sliding (c*) or
     junction (j*) entry owns, so it too is one scatter with unique
-    destinations. Float arrays stay f64; callers cast to their dtype."""
+    destinations. Float arrays stay f64; callers cast to their dtype.
+    Each level also carries the index tables of its correction glue on the
+    zebra planes (``ops.glue.build_tables``: ``kg_code``, ``kg_copy``,
+    ``kg_junction``), built and checked here once."""
     out = []
     for gl in glue_levels:
         u = _last_unique(gl.dst)
@@ -65,8 +71,12 @@ def prep_glue_arrays(glue_levels, device):
         def t(a, dtype):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
+        code, copy, junction = kg.build_tables(gl.smooth_mask, ga_dst,
+                                               ga_src, gl.jdst, gl.jsrc)
         rec = dict(
             smooth_mask=t(gl.smooth_mask, torch.bool),
+            kg_code=t(code, torch.uint8), kg_copy=t(copy, torch.int32),
+            kg_junction=t(junction, torch.int32),
             gsrc=t(src, torch.int64), gdst=t(dst, torch.int64),
             goff=t(off.reshape(-1, 2), torch.float64),
             gcsrc=t(ga_src, torch.int64), gcdst=t(ga_dst, torch.int64),
@@ -103,23 +113,38 @@ class MapGlue:
     y-correction of their level-local first interior neighbor (x forced
     to 0). Each call is one gather and one scatter over a map with
     unique destinations; values read the pre-scatter field. Never apply
-    it to coordinate or residual fields.
+    it to coordinate or residual fields. ``correction_planes`` glues the
+    zebra smoother's correction into its two ghost-framed planes: with
+    ``tables`` (``ops.glue.GlueTables``, from ``from_prep``) on CUDA
+    tensors one launch of K-G, else ``correction`` between the mask and
+    the split.
 
     The block-sharded glue (parallel.shard.ShardGlue) keeps this
     arithmetic and overrides where the sources are read: ``_frame``,
     ``_copies`` and ``_members``."""
 
-    def __init__(self, src, dst, off, csrc, cdst, cw, jdst, jsrc, jw):
+    #: the level's K-G tables (ops.glue.GlueTables), or None: no kernel
+    tables = None
+
+    def __init__(self, src, dst, off, csrc, cdst, cw, jdst, jsrc, jw,
+                 tables=None):
         self.src, self.dst, self.off = src, dst, off
         self.csrc, self.cdst, self.cw = csrc, cdst, cw
         self.jdst, self.jsrc, self.jw = jdst, jsrc, jw
+        self.tables = tables
 
     @classmethod
     def from_prep(cls, gl, dtype):
-        """The glue of ``gl``, one level of ``prep_glue_arrays``."""
+        """The glue of ``gl``, one level of ``prep_glue_arrays``, with its
+        K-G tables in f32."""
+        cw, jw = gl["gcw"].to(dtype), gl["gjw"].to(dtype)
+        tables = None
+        if dtype == torch.float32:
+            tables = kg.GlueTables(gl["smooth_mask"], gl["kg_code"],
+                                   gl["kg_copy"], gl["kg_junction"], cw, jw)
         return cls(gl["gsrc"], gl["gdst"], gl["goff"].to(dtype),
-                   gl["gcsrc"], gl["gcdst"], gl["gcw"].to(dtype),
-                   gl["gjdst"], gl["gjsrc"], gl["gjw"].to(dtype))
+                   gl["gcsrc"], gl["gcdst"], cw, gl["gjdst"], gl["gjsrc"],
+                   jw, tables)
 
     def _frame(self, v, corr):
         """(the flat view of ``v`` padded by one ghost ring, the padded
@@ -155,6 +180,24 @@ class MapGlue:
             dst = torch.cat([dst, self.jdst], dim=0)
         vf.index_copy_(0, dst, vals)
         return vf.reshape(shape)
+
+    def correction_planes(self, v, mask):
+        """The glued correction as two contiguous ghost-framed planes (x,
+        y): ``v`` the level's (B, N, M, 2) field, or the two framed planes
+        of a zebra half-sweep, whose interiors count only on the smooth
+        ``mask`` (B, N, M). A glue with tables takes only the mask they
+        were built from (the same tensor), since the kernel reads theirs."""
+        planes = not isinstance(v, torch.Tensor)
+        if self.tables is not None:
+            if mask is not self.tables.mask:
+                raise ValueError("correction_planes: not the smooth mask "
+                                 "the glue's tables were built from")
+            if (v[0] if planes else v).is_cuda:
+                return kg.glue_planes(self.tables, v)
+        if planes:
+            v = kg.unframe_planes(*v, mask)
+        vg = self.correction(v)
+        return vg[..., 0].contiguous(), vg[..., 1].contiguous()
 
 
 def glued_level_statics(glues, masks, maps, dtype):
@@ -296,30 +339,27 @@ def _smooth_glued(level, r, z, directions="ij"):
     """Zebra line relaxation over the glued mesh: for each direction in
     ``directions`` ("i": lines along i colored by j parity, then "j":
     lines along j colored by i parity; "ij" runs both, "i" or "j" one at
-    half the cost) and each color, glue the correction, then one zebra
-    half-sweep (residual + line solve + colored update) on the
-    ghost-framed planes."""
+    half the cost) and each color, glue the correction into the
+    ghost-framed planes, then one zebra half-sweep (residual + line solve
+    + colored update) on them. The correction stays in the planes from
+    the first half-sweep to the last; each glue reads the planes' values
+    on the smooth mask only (the glue wrote master values into slave rows;
+    corrections live on smoothed rows, and the glue re-syncs them each
+    apply), and so does the field returned."""
     zb = level["zebra"]
-    rx = _pad1(r[..., 0]).contiguous()
-    ry = _pad1(r[..., 1]).contiguous()
+    glue, mask = level["glue"], level["interior"]
+    rx, ry = kg.frame_planes(r)
     passes = []
     if "i" in directions:  # lines along i, each color of j parity
         passes += [(zb["li"], 0, sel) for sel in zb["sel_j"]]
     if "j" in directions:  # lines along j, each color of i parity
         passes += [(zb["lj"], 1, sel) for sel in zb["sel_i"]]
-    mask = level["interior"][..., None]
-    zero = torch.zeros((), dtype=r.dtype, device=r.device)
     for (dl, d, du), axis, sel in passes:
-        zg = level["glue"].correction(z)
-        zx, zy = zebra_half_sweep(
+        zx, zy = glue.correction_planes(z, mask)
+        z = zebra_half_sweep(
             zb["bx"], zb["by"], zb["cfp"], zb["cfq"], dl, d, du, zb["msk"],
-            sel, rx, ry, zg[..., 0].contiguous(), zg[..., 1].contiguous(),
-            axis=axis)
-        z = torch.stack([zx[:, 1:-1, 1:-1], zy[:, 1:-1, 1:-1]], dim=-1)
-        # the glue wrote master values into slave rows of zg; corrections
-        # live on smoothed rows only (the glue re-syncs them each apply)
-        z = torch.where(mask, z, zero)
-    return z
+            sel, rx, ry, zx, zy, axis=axis)
+    return kg.unframe_planes(*z, mask)
 
 
 def _gather_axis(a, idx, dim):
